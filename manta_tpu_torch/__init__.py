@@ -13,7 +13,17 @@ This package owns what in ``manta_tpu`` touches JAX on the main path:
 - ``align.cuda_jumpscore`` + ``csrc/jump_score.cu``: the hand-written
   Hopper kernel that replaces the Pallas kernel
   ``manta_tpu.align.pallas_jumpscore._kernel``;
+- ``align.device_splitscore``, ``align.device_splitscore_mxu``: the
+  split-read scan, its plain PyTorch form and its matmul form
+  (``manta_tpu.align.device_splitscore``, ``..._mxu``);
+- ``align.cuda_splitscore`` + ``csrc/split_score.cu``: the hand-written
+  Hopper kernel that replaces the Pallas kernel
+  ``manta_tpu.align.pallas_splitscore._kernel``;
+- ``scoring.device_scan``, ``scoring.scorer``: the split-scan router
+  and the scorer bound to it (``--device-scoring exact|mxu``);
 - ``candidates.refiner``: the assembly refiner bound to the port's scorer;
+- ``core.chromdepth``: the chromosome-depth estimate with its fork
+  fan-out, without JAX;
 - ``parallel.forkpool``: the JAX-free fork-result drain;
 - ``workflow.run``: the workflow and its CLI
   (``python -m manta_tpu_torch.workflow.run``);

@@ -221,9 +221,10 @@ def _register_dispatch_report():
     if _REPORT_REGISTERED:
         return
     _REPORT_REGISTERED = True
-    import atexit
     import os as _os
     import sys as _sys
+
+    from ..parallel.forkpool import at_process_exit
 
     def report():
         s = DISPATCH_STATS
@@ -235,11 +236,7 @@ def _register_dispatch_report():
                   f"{KERNEL_LAUNCHES['jump_score']} kernel launches",
                   file=_sys.stderr, flush=True)
             s["calls"] = 0        # once per process
-    atexit.register(report)
-    # fork-pool workers exit through multiprocessing's _exit_function,
-    # which runs its own finalizers but NOT atexit handlers
-    from multiprocessing.util import Finalize
-    Finalize(None, report, exitpriority=0)
+    at_process_exit(report)
 
 
 def make_bucketed_scorer(scores, jump_score: int, device):

@@ -9,6 +9,17 @@ fan-out, the phase-1 graph fan-out and the phase-2 edge bins.
 from __future__ import annotations
 
 
+def at_process_exit(fn):
+    """Call ``fn()`` when this process exits, a forked pool worker
+    included: those exit through multiprocessing's _exit_function, which
+    runs its own finalizers but NOT atexit handlers. ``fn`` runs at most
+    once per process if it guards itself."""
+    import atexit
+    from multiprocessing.util import Finalize
+    atexit.register(fn)
+    Finalize(None, fn, exitpriority=0)
+
+
 def drain_fork_result(queue, procs):
     """queue.get() that cannot deadlock on silently-dead workers.
 

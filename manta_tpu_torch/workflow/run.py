@@ -14,18 +14,20 @@ that module, by the module's own line numbers, only in:
 - :17-31 and every lazy import (:86, :229, :264, :269-270, :313, :338,
   :410, :457, :472, :534, :564, :701, :707, :825-826, :868-869,
   :989-990, :1047-1049, :1069-1070, :1172-1173): absolute
-  ``manta_tpu.*`` imports; :22 and :25 become the port's
-  ``parallel.forkpool`` and ``candidates.refiner``;
+  ``manta_tpu.*`` imports; :22, :25 and :30 become the port's
+  ``parallel.forkpool``, ``candidates.refiner`` and ``scoring.scorer``;
 - :104-142 ``resolve_device_scoring``: 'auto' probes CUDA through
   ``cuda_present`` (new); ``resolve_device`` (new) picks the torch
-  device, raises for 'jump' on CUDA without a CUDA device, and raises
-  NotImplementedError for 'exact' and 'mxu';
+  device of every device mode and raises for CUDA without a CUDA
+  device;
 - :170 ``run_workflow`` takes ``device``; :203 resolves it; :208 loads
   the native core through ``manta_tpu_torch.native_core`` first;
 - :223 the log prefix is ``[manta-tpu-torch]``;
-- :358-360 the chromosome depth estimate runs serially (the reference's
-  parallel one imports manta_tpu.parallel, hence JAX);
-- :464-471 phase 2 builds ``TorchAssemblyRefiner`` on ``device``;
+- :338-340 the chromosome depth estimate is the port's
+  ``core.chromdepth`` (the reference's fan-out imports
+  manta_tpu.parallel, hence JAX);
+- :464-484 phase 2 builds ``TorchAssemblyRefiner`` and
+  ``TorchSVScorer`` on ``device``;
 - :1254 and :1274-1285 the CLI description and --device-scoring help;
 - :1 and :75 docstring wording.
 """
@@ -48,7 +50,6 @@ from manta_tpu.candidates.multijunction import find_multi_junction_candidates
 from manta_tpu.candidates.processor import (
     ProcessorOptions, SVCandidateProcessor, SVWriter,
 )
-from manta_tpu.scoring.scorer import SVScorer
 from manta_tpu.format.vcfwriter import (
     VcfWriterCandidateSV, VcfWriterDiploidSV, VcfWriterSomaticSV,
     VcfWriterTumorSV,
@@ -56,6 +57,7 @@ from manta_tpu.format.vcfwriter import (
 
 from ..candidates.refiner import TorchAssemblyRefiner
 from ..parallel.forkpool import drain_fork_result
+from ..scoring.scorer import TorchSVScorer
 
 PROG_NAME = "GenerateSVCandidates"
 PROG_VERSION = "manta-tpu-0.1.0"
@@ -156,24 +158,19 @@ def cuda_present() -> bool:
 
 
 def resolve_device(device_scoring, device):
-    """The torch device that contig jump scoring runs on, or None when
-    it stays on the host. ``device=None`` means CUDA: without a CUDA
-    device that raises rather than running on the CPU unasked."""
+    """The torch device that device scoring (contig jump scoring, and
+    the split scan for 'exact' and 'mxu') runs on, or None when it stays
+    on the host. ``device=None`` means CUDA: without a CUDA device that
+    raises rather than running on the CPU unasked."""
     if device_scoring is None:
         return None
-    if device_scoring in ("exact", "mxu"):
-        raise NotImplementedError(
-            f"--device-scoring {device_scoring} needs the device split "
-            "scan, which manta_tpu_torch has not ported yet (ROADMAP.md "
-            "Queue 1 items 4-5: scoring/device_scan.py, "
-            "align/device_splitscore.py, align/device_splitscore_mxu.py)")
     import torch
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not cuda_present():
         raise RuntimeError(
-            "device jump scoring on CUDA was requested but no CUDA "
-            "device is available; pass device='cpu' to run the plain "
-            "PyTorch form on the host")
+            f"device scoring ({device_scoring}) on CUDA was requested but "
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch forms on the host")
     return device
 
 
@@ -206,9 +203,10 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
                  device=None):
     """Run phases 0-2 and write the results tree under ``run_dir``.
 
-    ``device``: the torch device of contig jump scoring when device
-    scoring is on (None means CUDA; ``"cpu"`` runs the plain PyTorch
-    form). Every other argument is ``manta_tpu.workflow.run``'s."""
+    ``device``: the torch device of contig jump scoring and, for
+    'exact' and 'mxu', of the split scan when device scoring is on
+    (None means CUDA; ``"cpu"`` runs the plain PyTorch forms). Every
+    other argument is ``manta_tpu.workflow.run``'s."""
     # advanced defaults tier (reference: configManta.py.ini values
     # parsed by configureUtil.py; see workflow/config_defaults.ini)
     adv = dict(ADVANCED_DEFAULTS)
@@ -242,7 +240,7 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     is_somatic = bool(tumor_bams) and bool(normal_bams)
     is_tumor_only = bool(tumor_bams) and not normal_bams
     device_scoring = resolve_device_scoring(use_device_scoring)
-    jump_device = resolve_device(device_scoring, device)
+    scoring_device = resolve_device(device_scoring, device)
     # contig jump scoring rides the same device decision; the native
     # score-only batch is the host fallback (both are bit-exact vs the
     # traceback aligner, so this is purely a performance choice)
@@ -379,7 +377,7 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     # normal BAMs when present, else tumor BAMs)
     chrom_depths = None
     if not (is_exome or is_rna):
-        from manta_tpu.core.chromdepth import (
+        from ..core.chromdepth import (
             estimate_chrom_depths, parse_chrom_depth, write_chrom_depth,
         )
         depth_path = os.path.join(run_dir, "workspace", "chromDepth.txt")
@@ -400,10 +398,8 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
         else:
             log("estimating chromosome depth")
             depth_bams = normal_bams if normal_bams else tumor_bams
-            # serial: the reference's parallel depth estimate imports
-            # manta_tpu.parallel, whose __init__ imports JAX
             chrom_depths = estimate_chrom_depths(
-                depth_bams, reference=reference, n_jobs=1)
+                depth_bams, reference=reference, n_jobs=n_jobs)
             write_chrom_depth(depth_path, chrom_depths)
             tasks.mark_done("chromDepth", [depth_path])
 
@@ -514,12 +510,12 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
             is_output_contig=is_output_contig, is_rna=is_rna,
             is_unstranded_rna=is_unstranded_rna,
             enable_remote_read_retrieval=enable_remote_retrieval,
-            jump_score_backend=jump_backend, device=jump_device)
+            jump_score_backend=jump_backend, device=scoring_device)
         from manta_tpu.scoring.scorer import CallOptionsDiploid, CallOptionsSomatic
-        scorer = SVScorer(
+        scorer = TorchSVScorer(
             scanner, finder.readers, is_tumor, comp_fasta,
             chrom_depths=chrom_depths, is_rna=is_rna,
-            use_device_scoring=device_scoring,
+            use_device_scoring=device_scoring, device=scoring_device,
             diploid_opt=CallOptionsDiploid(
                 min_output_alt_score=adv["min_diploid_variant_score"],
                 min_pass_alt_score=adv["min_pass_diploid_variant_score"],
@@ -1323,8 +1319,10 @@ def main(argv=None):
                          "CUDA device is present), 'jump' (contig "
                          "jump scoring through the CUDA jump kernel, "
                          "split scans on the host-native path), "
-                         "'exact' and 'mxu' (device split scans; not "
-                         "ported yet, they raise), or 'off'")
+                         "'exact' (adds the split-read scan through "
+                         "the CUDA split-scan kernel, bit-identical), "
+                         "'mxu' (the matmul split scan, ~1e-6 relative "
+                         "score error), or 'off'")
     ap.add_argument("--existing-align-stats", default=None,
                     help="fallback alignment stats JSON used when "
                          "direct estimation from a sample fails "

@@ -1,5 +1,7 @@
-"""The CUDA jump-DP kernel on the card, against its plain PyTorch form
-(on the same card) and the full traceback aligner. Tolerance: exact.
+"""The CUDA kernels on the card, against their plain PyTorch forms (on
+the same card): the jump DP (also against the full traceback aligner)
+and the split scan. Tolerance: exact (int32 scores; float32 split-scan
+sums bit-equal, positions equal).
 
 Needs a CUDA device and nvcc; skips without them. tests/conftest.py
 imports JAX, which a GPU host may not have, so on the card run:
@@ -7,14 +9,22 @@ imports JAX, which a GPU host may not have, so on the card run:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import gzip
+import os
+import re
+import subprocess
+import sys
+import tarfile
+
 import numpy as np
 import pytest
 import torch
 
 from manta_tpu.align.aligners import AlignmentScores, GlobalJumpAligner
 from manta_tpu_torch import native_core
-from manta_tpu_torch.align import cuda_jumpscore
+from manta_tpu_torch.align import cuda_jumpscore, cuda_splitscore
 from manta_tpu_torch.align import device_jumpscore as dj
+from manta_tpu_torch.align import device_splitscore as ds
 
 pytestmark = pytest.mark.cuda
 
@@ -112,3 +122,129 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="limit"):
         cuda_jumpscore.jump_score_cuda(wide, one, wide[:, :8], one,
                                        wide[:, :8], one, *ARGS)
+
+
+# ---- the split scan (csrc/split_score.cu)
+
+def _split_rows(rng, B, L, T, iupac):
+    """Reads planted in their targets with mutations, N bases, IUPAC
+    bytes on some rows, and rows with no valid scan position."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    codes = np.frombuffer(b"MRWSYKVHDB", np.uint8)
+    reads = np.full((B, L), 0xFF, np.uint8)
+    quals = np.zeros((B, L), np.uint8)
+    targets = np.full((B, T), ord("N"), np.uint8)
+    ints = np.zeros((4, B), np.int32)        # bp_beg, bp_end, rl, tl
+    for b in range(B):
+        t = int(rng.integers(max(1, T // 2), T + 1))
+        n = min(t, int(rng.integers(max(1, L // 2), L + 1)))
+        tg = bases[rng.integers(0, 4, t)].copy()
+        tg[rng.integers(0, t, 3)] = ord("N")
+        if iupac and b % 3 == 0:
+            tg[rng.integers(0, t, 4)] = codes[rng.integers(0, 10, 4)]
+        p = int(rng.integers(0, max(1, t - n)))
+        rd = tg[p:p + n].copy()
+        rd[rng.integers(0, n, 3)] = bases[rng.integers(0, 4, 3)]
+        if b % 4 == 1:
+            rd[rng.integers(0, n)] = ord("N")
+        reads[b, :n] = rd
+        quals[b, :n] = rng.integers(0, 75, n)
+        targets[b, :t] = tg
+        beg = t + 3 if b % 7 == 6 else int(rng.integers(0, t))
+        ints[:, b] = (beg, beg + int(rng.integers(0, 6)), n, t)
+    return (reads, quals, targets, *ints)
+
+
+def _split_kernel_and_plain(arrays, flank, n_scan, device):
+    t = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+              for a in arrays)
+    lm, lx = (torch.from_numpy(a).to(device) for a in ds.make_luts(1e-3))
+    kern = cuda_splitscore.split_score_cuda(*t, flank, lm, lx, n_scan)
+    plain = ds.batched_split_score(*t, flank, lm, lx, n_scan)
+    torch.cuda.synchronize()
+    return [x.cpu().numpy() for x in (*kern, *plain)]
+
+
+@pytest.mark.parametrize("B,L,T,n_scan,iupac", [
+    (1, 256, 512, 512, False), (7, 256, 300, 512, True),
+    (64, 256, 1000, 1024, True), (5, 512, 2048, 2048, True),
+    (3, 100, 400, 50, False), (2, 8192, 8192, 8192, True)])
+def test_split_kernel_matches_plain(cuda, B, L, T, n_scan, iupac):
+    """Bucketed widths of scan_multi (read tiers 256-8192, scan = the
+    target tier), and an n_scan below the scan window."""
+    arrays = _split_rows(np.random.default_rng(B + L), B, L, T, iupac)
+    kb, kp, pb, pp = _split_kernel_and_plain(arrays, 50, n_scan, cuda)
+    np.testing.assert_array_equal(kb, pb)
+    np.testing.assert_array_equal(kp, pp)
+    assert kb.dtype == np.float32 and kp.dtype == np.int32
+
+
+def test_split_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    arrays = _split_rows(np.random.default_rng(3), 4, 64, 128, False)
+    t = [torch.from_numpy(a).to(cuda) for a in arrays]
+    lm, lx = (torch.from_numpy(a).to(cuda) for a in ds.make_luts(0.0))
+    launches = cuda_splitscore.KERNEL_LAUNCHES["split_score"]
+    with pytest.raises(TypeError, match="uint8"):
+        cuda_splitscore.split_score_cuda(t[0].int(), *t[1:], 50, lm, lx, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_splitscore.split_score_cuda(
+            t[0].t().contiguous().t(), *t[1:], 50, lm, lx, 128)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_splitscore.split_score_cuda(*t[:3], t[3][:2], *t[4:], 50, lm,
+                                         lx, 128)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_splitscore.split_score_cuda(*t, 50, lm[:70], lx, 128)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_splitscore.split_score_cuda(*t, 50, lm.cpu(), lx, 128)
+    wide = torch.full((1, 40000), 65, dtype=torch.uint8, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_splitscore.split_score_cuda(wide, wide, wide, one, one, one,
+                                         one, 50, lm, lx, 8)
+    assert cuda_splitscore.KERNEL_LAUNCHES["split_score"] == launches
+
+
+@pytest.fixture
+def demo_fasta():
+    """The demo reference, extracted once into the git-ignored
+    .testdata/ (as tests/conftest.py does)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    demo = os.path.join(repo, "tests", "data", "demo")
+    name = "Homo_sapiens_assembly19.COST16011_region.fa"
+    fa = os.path.join(repo, ".testdata", name)
+    if not os.path.exists(fa):
+        with tarfile.open(os.path.join(demo, name + ".tar.bz2")) as tf:
+            tf.extractall(os.path.dirname(fa), filter="data")
+    if not os.path.exists(fa + ".fai"):
+        with open(os.path.join(demo, name + ".fai"), "rb") as src, \
+                open(fa + ".fai", "wb") as dst:
+            dst.write(src.read())
+    return repo, demo, fa
+
+
+def test_demo_exact_j2_launches_both_kernels_in_workers(cuda, tmp_path,
+                                                        demo_fasta):
+    """-j 2 with --device-scoring exact, in a fresh process: phase 2
+    forks workers, each initialises CUDA and scans split reads through
+    the kernel; the somatic VCF body equals the oracle."""
+    repo, demo, fasta = demo_fasta
+    run_dir = tmp_path / "run"
+    cli = subprocess.run(
+        [sys.executable, "-m", "manta_tpu_torch.workflow.run",
+         "--normal-bam",
+         os.path.join(demo, "HCC1954.NORMAL.30x.compare.COST16011_region.bam"),
+         "--tumor-bam", os.path.join(demo, "G15512.HCC1954.1.COST16011_region.bam"),
+         "--reference", fasta, "--run-dir", str(run_dir), "--exome",
+         "-j", "2", "--device-scoring", "exact"],
+        capture_output=True, text=True, cwd=repo, timeout=600)
+    assert cli.returncode == 0, cli.stderr[-3000:]
+    launches = [int(n) for n in re.findall(
+        r"split-scan pid=\d+: .* (\d+) kernel launches", cli.stderr)]
+    assert len(launches) >= 1 and sum(launches) > 0, cli.stderr[-3000:]
+    with gzip.open(run_dir / "results" / "variants" / "somaticSV.vcf.gz",
+                   "rt") as f:
+        got = [ln for ln in f if not ln.startswith("#")]
+    with gzip.open(os.path.join(demo, "expectedResults",
+                                "somaticSV.vcf.gz"), "rt") as f:
+        want = [ln for ln in f if not ln.startswith("#")]
+    assert got == want

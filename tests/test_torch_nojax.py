@@ -57,20 +57,24 @@ print(json.dumps({"got": got.tolist(),
 _DEMO = r"""
 import gzip
 normal, tumor, fasta, run_dir = sys.argv[2:6]
+mode = sys.argv[6] if len(sys.argv) > 6 else "jump"
+from manta_tpu_torch.scoring.device_scan import SCAN_STATS
 from manta_tpu_torch.workflow.run import run_workflow
 run_workflow([normal], [tumor], fasta, run_dir, is_exome=True,
-             use_device_scoring="jump", device="cpu", verbose=False)
+             use_device_scoring=mode, device="cpu", verbose=False)
 with gzip.open(run_dir + "/results/variants/somaticSV.vcf.gz", "rt") as f:
     body = [ln for ln in f if not ln.startswith("#")]
-print(json.dumps({"body": body,
+print(json.dumps({"body": body, "scans": SCAN_STATS,
                   "jax": [m for m in sys.modules if m.startswith("jax")]}))
 """
 
 
 def _run(script, *args):
+    # one torch thread: see test_torch_splitscore.one_torch_thread
     proc = subprocess.run(
         [sys.executable, "-c", _PRELUDE + script, REPO, *args],
-        capture_output=True, text=True, timeout=300, cwd=REPO)
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
@@ -81,6 +85,12 @@ def test_every_module_imports_without_jax():
     for name in ("manta_tpu_torch.align.device_jumpscore",
                  "manta_tpu_torch.align.cuda_jumpscore",
                  "manta_tpu_torch.candidates.refiner",
+                 "manta_tpu_torch.align.device_splitscore",
+                 "manta_tpu_torch.align.cuda_splitscore",
+                 "manta_tpu_torch.align.device_splitscore_mxu",
+                 "manta_tpu_torch.scoring.device_scan",
+                 "manta_tpu_torch.scoring.scorer",
+                 "manta_tpu_torch.core.chromdepth",
                  "manta_tpu_torch.parallel.forkpool",
                  "manta_tpu_torch.workflow.run",
                  "manta_tpu_torch.native_core"):
@@ -93,15 +103,30 @@ def test_scoring_without_jax():
     assert out["got"] == out["native"]
 
 
-def test_demo_workflow_without_jax(tmp_path, demo_fasta, normal_bam,
-                                   tumor_bam):
+def _oracle():
     import gzip
-    out = _run(_DEMO, normal_bam, tumor_bam, demo_fasta,
-               str(tmp_path / "run"))
-    assert out["jax"] == []
     with gzip.open(os.path.join(REPO, "tests", "data", "demo",
                                 "expectedResults", "somaticSV.vcf.gz"),
                    "rt") as f:
-        want = [ln for ln in f if not ln.startswith("#")]
+        return [ln for ln in f if not ln.startswith("#")]
+
+
+def test_demo_workflow_without_jax(tmp_path, demo_fasta, normal_bam,
+                                   tumor_bam):
+    out = _run(_DEMO, normal_bam, tumor_bam, demo_fasta,
+               str(tmp_path / "run"))
+    assert out["jax"] == []
+    want = _oracle()
     assert out["body"] == want
     assert len(want) == 6
+
+
+def test_demo_exact_split_scan_without_jax(tmp_path, demo_fasta,
+                                           normal_bam, tumor_bam):
+    """--device-scoring exact: the port's split scan (its plain form on
+    the CPU) replaces the JAX package's, which imports JAX."""
+    out = _run(_DEMO, normal_bam, tumor_bam, demo_fasta,
+               str(tmp_path / "run"), "exact")
+    assert out["jax"] == []
+    assert out["scans"]["exact"] > 0
+    assert out["body"] == _oracle()
