@@ -4,17 +4,25 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It drives the port's main paths,
-contig jump scoring (--device-scoring jump) and the device split-read
-scan (--device-scoring exact, and mxu):
+contig jump scoring (--device-scoring jump), the device split-read scan
+(--device-scoring exact, and mxu) and the kernel-timing entry point
+(python -m manta_tpu_torch.tools.device_timing):
 
 1. environment: torch and CUDA versions, the card's name and power
    limit, the native core, and no JAX anywhere in the process;
-2. build: nvcc builds the jump-DP and the split-scan kernels from
-   manta_tpu_torch/csrc/, one process each, started together;
+2. build: nvcc builds the jump-DP, the bounded jump-DP and the
+   split-scan kernels from manta_tpu_torch/csrc/, one process each,
+   started together;
 3. kernel (jump): the CUDA kernel, the plain PyTorch form on the card
    and the native score batch give identical int32 scores at the
    scorer's bucket shapes; kernel and plain form are timed with CUDA
    events;
+3b. kernel (bounded jump): at the same shapes and prefix_rounds 3 and
+   5, on random jobs mixed with a long junction insertion (flags) and a
+   short query (cannot flag): score and flag of the CUDA kernel equal
+   the plain flagged form on every row, and the bounded form with its
+   rerun equals the exact kernel and the exact plain form; timed in
+   turns with the exact kernel;
 4. kernel (split scan): the CUDA kernel and the plain PyTorch form on
    the card give bit-equal float32 scores and equal positions at the
    bucketed shapes the device scan context gives the kernel, and both
@@ -28,7 +36,18 @@ scan (--device-scoring exact, and mxu):
    exact and mxu; the diploid VCF bodies of off, jump and exact are
    identical and each device path launched its kernels; then exact at
    -j 2 through the CLI, whose body and chromosome depths equal the
-   -j 1 runs'.
+   -j 1 runs'; the real contig jobs of the jump run go through the
+   bounded kernel once more, for their flag count;
+7. the timing entry point, python -m manta_tpu_torch.tools.device_timing
+   --kernel all --json, in a subprocess: its records, and its launch
+   counts (all three kernels launched).
+
+Neither JAX nor the JAX package manta_tpu is imported anywhere. The
+line before the card's holds, for every kernel, its launches on its
+path, its times and its bound: the least time the card could take, the
+larger of the bytes (each input once, each output once) over 3.35 TB/s
+and the int32/float32 operations of the rows' own lengths over 67 Top/s
+(NVIDIA's H100 SXM data sheet), computed from the timed inputs.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the exit code is non-zero and that line is not printed. Without a CUDA
@@ -58,6 +77,9 @@ NORMAL_BAM = "HCC1954.NORMAL.30x.compare.COST16011_region.bam"
 KERNELS = {
     "jump_score": ("manta_tpu_torch/csrc/jump_score.cu",
                    "manta_tpu/align/pallas_jumpscore.py:79"),
+    # pallas_jump_score_flagged: _kernel with prefix_rounds and flag_ref
+    "jump_score_bounded": ("manta_tpu_torch/csrc/jump_score_bounded.cu",
+                           "manta_tpu/align/pallas_jumpscore.py:242"),
     "split_score": ("manta_tpu_torch/csrc/split_score.cu",
                     "manta_tpu/align/pallas_splitscore.py:50"),
 }
@@ -80,6 +102,23 @@ FLANK = 50
 # germline WGS-shaped workload: 2 x 8 Mb at 35x, about 5.6 M reads
 WGS_ARGS = ("--chroms", "2", "--mb", "8", "--depth", "35", "--seed", "7")
 TIMED_RUNS = 5
+BOUNDED_ROUNDS = (3, 5)      # benchmarks/device_timing.py:359
+# the card's published peaks (NVIDIA's data sheet, H100 SXM, 700 W):
+# device memory rate, and float32 outside the tensor cores, which is
+# also what int32 adds and maxes are held against
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# int32 operations one DP cell (one query lane in one reference column)
+# needs. Exact chain: substitution 2 (compare, select), M 1, diagonal
+# 2-3, D 4, insert source 1-2, its offset and floor 3, prefix max 1, I 3,
+# J 4 in the ref1 phase: 21 there, 19 in the ref2 phase. Bounded chain:
+# two sliding maxima at 3 each for the one prefix max, and 4 for the
+# detection value and its compare.
+JUMP_OPS_PER_CELL = 20
+BOUNDED_OPS_PER_CELL = 29
+# operations per useful term of the split scan: base compare, two N
+# tests, two selects, add
+SPLIT_OPS_PER_TERM = 6
 
 
 def phase(name: str) -> None:
@@ -119,6 +158,7 @@ def build() -> None:
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         list(pool.map(_build.build, KERNELS))
     cuda_jumpscore.max_query_width()          # loads
+    cuda_jumpscore._bounded_lib()
     cuda_splitscore._lib()
     for name, (source, _replaces) in KERNELS.items():
         secs = _build.BUILD_SECONDS.get(name)
@@ -200,6 +240,28 @@ def _device_ms(fn, kernel: str, runs: int = 50):
     return None
 
 
+def _bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def _jump_bound(arrays, ops_per_cell: int, n_out: int) -> dict:
+    """Bound of one jump-DP call on the padded numpy inputs: every code
+    and length read once, ``n_out`` int32 written per row; the cells are
+    those of the rows' own lengths, (qlen + 1) lanes by r1len + r2len
+    columns."""
+    q, ql, r1, r1l, r2, r2l = arrays
+    n_bytes = 4 * (q.size + r1.size + r2.size + (3 + n_out) * len(ql))
+    cells = int(((ql.astype("int64") + 1)
+                 * (r1l.astype("int64") + r2l)).sum())
+    return _bound(n_bytes, ops_per_cell * cells)
+
+
 def check_jump_kernel() -> dict:
     """Kernel vs plain form (on the card) vs native score batch, at the
     bucketed shapes the scorer gives the kernel. Returns the bench
@@ -207,8 +269,8 @@ def check_jump_kernel() -> dict:
     phase("kernel: CUDA jump DP vs plain PyTorch vs native")
     import numpy as np
     import torch
-    from manta_tpu.align.aligners import jump_score_batch
-    from manta_tpu.candidates.refiner import RefinerOptions
+    from manta_tpu_torch.align.aligners import jump_score_batch
+    from manta_tpu_torch.candidates.refiner import RefinerOptions
     from manta_tpu_torch.align import cuda_jumpscore
     from manta_tpu_torch.align import device_jumpscore as dj
 
@@ -247,14 +309,110 @@ def check_jump_kernel() -> dict:
         p_ms = _time_ms(lambda: dj.batched_jump_score(*t, *args, nq, nr1,
                                                      nr2), runs=3)
         cells = B * nq * (nr1 + nr2)
+        bound = _jump_bound((q, ql, r1, r1l, r2, r2l), JUMP_OPS_PER_CELL, 1)
         print(f"B={B} nq={nq} nr1={nr1} nr2={nr2}: kernel == plain == "
               f"native on {B} rows (tolerance: exact); kernel "
               f"{k_ms:.4f} ms ({cells / k_ms / 1e6:.2f} Gcells/s), plain "
-              f"{p_ms:.2f} ms ({cells / p_ms / 1e6:.4f} Gcells/s)",
-              flush=True)
+              f"{p_ms:.2f} ms ({cells / p_ms / 1e6:.4f} Gcells/s); bound "
+              f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} "
+              f"({bound['bound_ms'] / k_ms:.2%} reached), dependent chain "
+              f"{int((r1l + r2l).max())} columns", flush=True)
         if bench is None:
-            bench = {"ms": k_ms, "plain_ms": p_ms}
+            bench = {"ms": k_ms, "plain_ms": p_ms, **bound}
     bench["max_abs_err"] = max_err
+    return bench
+
+
+def check_bounded_kernel() -> dict:
+    """The bounded-chain kernel vs its plain form (score and flag on
+    every row), and the bounded form with its rerun vs the exact kernel
+    and the exact plain form, at the scorer's bucket shapes and both
+    prefix_rounds. Returns the bench shape's numbers at the first
+    prefix_rounds."""
+    phase("kernel: CUDA bounded jump DP vs plain PyTorch vs the exact kernel")
+    import numpy as np
+    import torch
+    from manta_tpu_torch.candidates.refiner import RefinerOptions
+    from manta_tpu_torch.align import cuda_jumpscore as cj
+    from manta_tpu_torch.align import device_jumpscore as dj
+
+    opt = RefinerOptions()
+    scores, jump = opt.spanning_scores, opt.jump_score
+    args = (scores.match, scores.mismatch, scores.open, scores.extend,
+            scores.off_edge, jump)
+    rng = np.random.default_rng(20261017)
+
+    def seq(n):
+        return bytes(b"ACGT"[i] for i in rng.integers(0, 4, n))
+
+    bench = None
+    for B, nq_max, nr_max in KERNEL_SHAPES:
+        # random jobs, a junction insertion longer than 2^(K+1) lanes
+        # for every K (as tests/test_pallas_jumpscore.py:70 makes them),
+        # a query shorter than 2^K lanes for every K, two pad rows
+        ins = (2 << max(BOUNDED_ROUNDS)) + 26
+        half = (min(nq_max, 190) - ins) // 2
+        left, right = seq(half), seq(half)
+        jobs = _jobs(rng, B - 4, nq_max, nr_max) + [
+            (left + seq(ins) + right, seq(30) + left, right + seq(30)),
+            (seq((1 << min(BOUNDED_ROUNDS)) - 1), seq(nr_max // 2),
+             seq(nr_max // 2))]
+        arrays = dj.pad_jobs(jobs, B)
+        nq, nr1, nr2 = (arrays[i].shape[1] for i in (0, 2, 4))
+        t = dj.from_reference_inputs(*arrays, "cuda")
+        exact = cj.jump_score_cuda(*t, *args)
+        p_exact = dj.batched_jump_score(*t, *args, nq, nr1, nr2)
+        if not torch.equal(exact, p_exact):
+            raise AssertionError(f"exact kernel != plain at B={B} nq={nq}")
+        exact_ms = [_time_ms(lambda: cj.jump_score_cuda(*t, *args))]
+        for rounds in BOUNDED_ROUNDS:
+            best, flag = cj.jump_score_flagged_cuda(*t, *args, rounds)
+            p_best, p_flag = dj.batched_jump_score_flagged(
+                *t, *args, nq, nr1, nr2, rounds)
+            fixed, n_flagged = cj.jump_score_bounded_cuda(*t, *args, rounds)
+            torch.cuda.synchronize()
+            if not (torch.equal(best, p_best) and torch.equal(flag, p_flag)):
+                bad = torch.nonzero((best != p_best) | (flag != p_flag))
+                raise AssertionError(
+                    f"bounded kernel != plain at B={B} nq={nq} K={rounds}: "
+                    f"rows {bad[:8, 0].tolist()}")
+            if not torch.equal(fixed, exact):
+                raise AssertionError(
+                    f"bounded + rerun != exact at B={B} nq={nq} K={rounds}")
+            if not 0 < n_flagged < B or n_flagged != int((flag != 0).sum()):
+                raise AssertionError(
+                    f"B={B} nq={nq} K={rounds}: {n_flagged} of {B} rows "
+                    "flagged; wanted flagged and unflagged rows")
+            if not flag[B - 4] or flag[B - 3:].any():
+                raise AssertionError(
+                    f"B={B} nq={nq} K={rounds}: the long insertion must "
+                    "flag; the short query and the pad rows must not")
+            differ = int((best != exact).sum())
+            k_ms = _time_ms(lambda: cj.jump_score_flagged_cuda(*t, *args,
+                                                               rounds))
+            d_ms = _device_ms(lambda: cj.jump_score_flagged_cuda(
+                *t, *args, rounds), "jump_score_kernel", runs=10)
+            r_ms = _time_ms(lambda: cj.jump_score_bounded_cuda(*t, *args,
+                                                               rounds))
+            exact_ms.append(_time_ms(lambda: cj.jump_score_cuda(*t, *args)))
+            bound = _jump_bound(arrays, BOUNDED_OPS_PER_CELL, 2)
+            print(f"B={B} nq={nq} nr1={nr1} nr2={nr2} K={rounds}: kernel "
+                  f"(best, flag) == plain on {B} rows, bounded + rerun == "
+                  f"exact kernel == exact plain (tolerance: exact); "
+                  f"{n_flagged} rows flagged, {differ} bounded scores "
+                  f"differ; kernel {k_ms:.4f} ms (events), "
+                  f"{'not measured' if d_ms is None else f'{d_ms:.4f} ms'} "
+                  f"(profiler), with rerun {r_ms:.4f} ms; exact kernel "
+                  f"before {exact_ms[-2]:.4f} ms, after {exact_ms[-1]:.4f} "
+                  f"ms; bound {bound['bound_ms']:.5f} ms by "
+                  f"{bound['bound_by']} ({bound['bound_ms'] / k_ms:.2%} "
+                  "reached)", flush=True)
+            if bench is None:
+                p_ms = _time_ms(lambda: dj.batched_jump_score_flagged(
+                    *t, *args, nq, nr1, nr2, rounds), runs=3)
+                print(f"    plain flagged form {p_ms:.2f} ms", flush=True)
+                bench = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": 0,
+                         **bound}
     return bench
 
 
@@ -318,8 +476,10 @@ def check_split_kernel(card: str) -> dict:
     phase("kernel: CUDA split scan vs plain PyTorch vs native")
     import numpy as np
     import torch
-    from manta_tpu.io.bam import BamReader
-    from manta_tpu.scoring.evidence import QscoreSnp, split_read_scan_multi
+    from manta_tpu_torch.io.bam import BamReader
+    from manta_tpu_torch.scoring.evidence import (
+        QscoreSnp, split_read_scan_multi,
+    )
     from manta_tpu_torch.align import cuda_splitscore
     from manta_tpu_torch.align import device_splitscore as ds
     from manta_tpu_torch.scoring import device_scan
@@ -400,7 +560,13 @@ def check_split_kernel(card: str) -> dict:
               f"{len(rows)} rows ({len(rows) / n_ms * 1e3:.0f} rows/s)",
               flush=True)
         if si == SPLIT_REPORTED:
-            reported = {"ms": k_ms, "plain_ms": p_ms}
+            # reads, quals, targets, four int32 per row, both LUTs in;
+            # a float32 and an int32 per row out
+            n_bytes = sum(a.nbytes for a in arrays) + 2 * 71 * 4 + 8 * B
+            bound = _bound(n_bytes, SPLIT_OPS_PER_TERM * terms)
+            print(f"    bound {bound['bound_ms']:.6f} ms by "
+                  f"{bound['bound_by']}", flush=True)
+            reported = {"ms": k_ms, "plain_ms": p_ms, **bound}
     reported["max_abs_err"] = max_err
     return reported
 
@@ -438,8 +604,10 @@ def _reset_counts():
     from manta_tpu_torch.align import device_jumpscore as dj
     from manta_tpu_torch.align import device_splitscore as ds
     from manta_tpu_torch.scoring.device_scan import SCAN_STATS
-    cuda_jumpscore.KERNEL_LAUNCHES["jump_score"] = 0
-    cuda_splitscore.KERNEL_LAUNCHES["split_score"] = 0
+    for launches in (cuda_jumpscore.KERNEL_LAUNCHES,
+                     cuda_splitscore.KERNEL_LAUNCHES):
+        for k in launches:
+            launches[k] = 0
     dj.PLAIN_CALLS["cuda"] = 0
     ds.PLAIN_CALLS["cuda"] = 0
     for stats in (dj.DISPATCH_STATS, SCAN_STATS):
@@ -453,6 +621,7 @@ def _counts():
     from manta_tpu_torch.align import device_splitscore as ds
     from manta_tpu_torch.scoring.device_scan import SCAN_STATS
     return {"jump": cuda_jumpscore.KERNEL_LAUNCHES["jump_score"],
+            "bounded": cuda_jumpscore.KERNEL_LAUNCHES["jump_score_bounded"],
             "split": cuda_splitscore.KERNEL_LAUNCHES["split_score"],
             "plain_jump": dj.PLAIN_CALLS["cuda"],
             "plain_split": ds.PLAIN_CALLS["cuda"],
@@ -468,6 +637,10 @@ def _check_counts(what, mode, c):
         raise AssertionError(f"{what} ({mode}): plain-form calls on CUDA: "
                              f"{c['plain_jump']} jump, {c['plain_split']} "
                              "split")
+    if c["bounded"]:
+        raise AssertionError(f"{what} ({mode}): {c['bounded']} bounded jump "
+                             "launches; the workflow scores on the exact "
+                             "kernel")
     if c["jump"] != c["dispatch"]["calls"]:
         raise AssertionError(f"{what} ({mode}): {c['jump']} jump launches "
                              f"for {c['dispatch']['calls']} dispatches")
@@ -593,16 +766,31 @@ def wgs_workload(device: str = "cuda", wgs_args=WGS_ARGS) -> dict:
     print(f"generated in {time.perf_counter() - t0:.1f} s: "
           f"{reads.split('] ', 1)[1]}", flush=True)
 
+    # the jump run's dispatches, as the scorer hands them to the
+    # kernel: kept for the bounded kernel's flag count below
+    from manta_tpu_torch.align import device_jumpscore as dj
+    dispatches = []
+    score = dj._score
+
+    def keeping_score(*a):
+        dispatches.append(a)
+        return score(*a)
+
     bodies, counted = {}, {}
     for mode in ("off", "jump", "exact", "mxu"):
         run_dir = os.path.join(work, f"run_{mode}")
         # each path's counts are set to 0 just before it and read just
         # after
         _reset_counts()
+        if mode == "jump":
+            dj._score = keeping_score
         t0 = time.perf_counter()
-        run_workflow([prefix + ".bam"], [], prefix + ".fa", run_dir,
-                     use_device_scoring=mode, device=device, n_jobs=1,
-                     verbose=False)
+        try:
+            run_workflow([prefix + ".bam"], [], prefix + ".fa", run_dir,
+                         use_device_scoring=mode, device=device, n_jobs=1,
+                         verbose=False)
+        finally:
+            dj._score = score
         wall = time.perf_counter() - t0
         c = counted[mode] = _counts()
         _check_counts("WGS-shaped", mode, c)
@@ -670,8 +858,75 @@ def wgs_workload(device: str = "cuda", wgs_args=WGS_ARGS) -> dict:
         raise AssertionError("-j 2 chromDepth.txt differs from -j 1's")
     print("diploidSV body identical: off, jump and exact at -j 1, exact at "
           "-j 2; -j 2 chromDepth.txt == -j 1's", flush=True)
+    _flag_real_jobs(dispatches, counted["jump"]["dispatch"]["jobs"])
     return {"jump_score": counted["jump"]["jump"],
             "split_score": counted["exact"]["split"]}
+
+
+def _flag_real_jobs(dispatches, n_jobs: int) -> None:
+    """The contig jobs of the WGS-shaped jump run through the bounded
+    kernel: how many rows flag, and that its rerun gives the exact
+    kernel's scores. The workflow itself never runs the bounded kernel."""
+    import torch
+    from manta_tpu_torch.align import cuda_jumpscore as cj
+    if len(dispatches) == 0:
+        raise AssertionError("the jump run kept no dispatch")
+    for rounds in BOUNDED_ROUNDS:
+        rows = flagged = 0
+        for (*t, scores, jump) in dispatches:
+            args = (scores.match, scores.mismatch, scores.open,
+                    scores.extend, scores.off_edge, jump)
+            fixed, n = cj.jump_score_bounded_cuda(*t, *args, rounds)
+            if not torch.equal(fixed, cj.jump_score_cuda(*t, *args)):
+                raise AssertionError("bounded + rerun != exact kernel on "
+                                     f"real contig jobs, K={rounds}")
+            rows += t[0].shape[0]
+            flagged += n
+        shapes = sorted({(t[0].shape[0], t[0].shape[1], t[2].shape[1],
+                          t[4].shape[1]) for (*t, _s, _j) in dispatches})
+        print(f"bounded kernel on the jump run's {len(dispatches)} "
+              f"dispatches, K={rounds}: {flagged} rows flagged of {rows} "
+              f"padded rows ({n_jobs} contig jobs; pad rows never flag); "
+              f"bounded + rerun == exact kernel; shapes (B, nq, nr1, nr2) "
+              f"{shapes}", flush=True)
+
+
+def device_timing() -> dict:
+    """The timing entry point as a user runs it, in a process of its
+    own: prints its records; returns its kernel launch counts, each of
+    which must be positive."""
+    phase("timing entry point: python -m manta_tpu_torch.tools.device_timing")
+    out = os.path.join(WORK, "chip_smoke", "device_timing.jsonl")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "manta_tpu_torch.tools.device_timing",
+         "--kernel", "all", "--json", out],
+        capture_output=True, text=True, cwd=REPO)
+    if run.returncode != 0:
+        raise RuntimeError(f"device_timing failed ({run.returncode}):\n"
+                           f"{run.stdout}\n{run.stderr[-3000:]}")
+    with open(out) as f:
+        records = [json.loads(ln) for ln in f]
+    for rec in records:
+        print(json.dumps(rec), flush=True)
+    if any("error" in rec for rec in records):
+        raise AssertionError("a bench of the timing entry point failed")
+    names = {rec.get("kernel") for rec in records}
+    want = {"matmul_bf16_ref", "jump_score_dp", "jump_score_cuda",
+            "split_scan_exact", "split_scan_cuda", "split_scan_mxu"} | {
+        f"jump_score_cuda_bounded_k{k}" for k in BOUNDED_ROUNDS}
+    if not want <= names:
+        raise AssertionError(f"missing records: {sorted(want - names)}")
+    counts = records[-1]["kernel_launches"]
+    if min(counts[k] for k in KERNELS) <= 0:
+        raise AssertionError(f"the timing path left a kernel unlaunched: "
+                             f"{counts}")
+    print(f"launches of the timing path {counts}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
 
 
 def main() -> None:
@@ -683,18 +938,25 @@ def main() -> None:
     card = environment()
     build()
     measured = {"jump_score": check_jump_kernel(),
+                "jump_score_bounded": check_bounded_kernel(),
                 "split_score": check_split_kernel(card)}
     demo_workflow()
     launches = wgs_workload()
-    if "jax" in sys.modules or "jaxlib" in sys.modules:
-        raise AssertionError("JAX was imported")
+    launches["jump_score_bounded"] = device_timing()["jump_score_bounded"]
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "manta_tpu"))
+    if foreign:
+        raise AssertionError(f"JAX or the JAX package was imported: "
+                             f"{foreign[:8]}")
     import torch
-    print(f"\nno JAX imported; total {time.perf_counter() - t_start:.1f} s")
+    print(f"\nno jax, jaxlib or manta_tpu module imported; total "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
-        "max_abs_err": measured[name]["max_abs_err"],
-        "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"]}
+        **{key: measured[name][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}}
         for name, (source, replaces) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
 """Build-at-first-use for the port's native sources under ``csrc/``.
 
-A CUDA kernel is one ``csrc/<name>.cu`` file with a plain C interface,
-compiled by ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>.so``
-and loaded with ``ctypes``. A host helper is one ``csrc/<name>.c`` file
-compiled by the C compiler. A library is rebuilt when its source is
-newer, the same rule as ``manta_tpu/_native.py``. Nothing here runs at
+A CUDA kernel is one ``csrc/<name>.cu`` file with a plain C interface
+(it may include the shared ``csrc/*.cuh`` headers), compiled by ``nvcc``
+for Hopper (``sm_90a``) into ``build/lib<name>.so`` and loaded with
+``ctypes``. A host helper is one ``csrc/<name>.c`` file compiled by the
+C compiler. A library is rebuilt when its source or a header is newer,
+the same rule as ``_native.py``. Nothing here runs at
 import time, so hosts without ``nvcc`` import the package freely.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -39,11 +41,13 @@ def find_nvcc() -> str:
 
 
 def _compile(name: str, src: str, out: str, cmd_head: list[str],
-             cmd_tail: list[str]) -> str:
+             cmd_tail: list[str], headers: tuple[str, ...] = ()) -> str:
     """Run one compiler command into ``out`` if it is missing or older
-    than ``src``. The compiler's output is kept in ``build/<out>.log``
-    (for nvcc: registers, shared memory and spills per kernel)."""
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+    than ``src`` or one of ``headers``. The compiler's output is kept in
+    ``build/<out>.log`` (for nvcc: registers, shared memory and spills
+    per kernel)."""
+    if os.path.exists(out) and os.path.getmtime(out) >= max(
+            os.path.getmtime(p) for p in (src, *headers)):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
@@ -64,7 +68,8 @@ def build(name: str) -> str:
     return the library path."""
     return _compile(name, os.path.join(CSRC_DIR, f"{name}.cu"),
                     os.path.join(BUILD_DIR, f"lib{name}.so"),
-                    [find_nvcc(), *NVCC_FLAGS], [])
+                    [find_nvcc(), *NVCC_FLAGS], [],
+                    tuple(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))))
 
 
 def build_host(name: str, soname: str, libs: list[str]) -> str:

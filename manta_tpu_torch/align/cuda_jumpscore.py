@@ -1,14 +1,17 @@
-"""Wrapper of the hand-written CUDA jump-DP kernel (csrc/jump_score.cu).
+"""Wrappers of the hand-written CUDA jump-DP kernels (csrc/jump_score.cu,
+csrc/jump_score_bounded.cu).
 
-Counterpart of manta_tpu/align/pallas_jumpscore.py (``pallas_jump_score``
-and its body ``_kernel``). Same contract as the plain form
-``device_jumpscore.batched_jump_score`` on int32 tensors in the JAX
-layout: query (B, nq), ref1 (B, nr1), ref2 (B, nr2), lengths (B,);
-returns the exact int32 best score per row.
+Counterpart of manta_tpu/align/pallas_jumpscore.py: ``jump_score_cuda``
+of ``pallas_jump_score``, ``jump_score_flagged_cuda`` of
+``pallas_jump_score_flagged`` and ``jump_score_bounded_cuda`` of
+``pallas_jump_score_bounded`` (body ``_kernel``). Same contracts as the
+plain forms ``device_jumpscore.batched_jump_score``, ``..._flagged`` and
+``..._bounded`` on int32 tensors in the JAX layout: query (B, nq), ref1
+(B, nr1), ref2 (B, nr2), lengths (B,).
 
-The library is built with nvcc at first call (``manta_tpu_torch._build``)
-and launched on the current CUDA stream. This wrapper only ever launches
-the kernel: a CPU tensor or anything else the kernel does not take
+Each library is built with nvcc at first call (``manta_tpu_torch._build``)
+and launched on the current CUDA stream. These wrappers only ever launch
+the kernels: a CPU tensor or anything else a kernel does not take
 raises.
 """
 
@@ -18,10 +21,12 @@ import ctypes
 
 import torch
 
-# one per kernel launch made by jump_score_cuda, and nowhere else
-KERNEL_LAUNCHES = {"jump_score": 0}
+# one per kernel launch: "jump_score" by jump_score_cuda,
+# "jump_score_bounded" by jump_score_flagged_cuda, and nowhere else
+KERNEL_LAUNCHES = {"jump_score": 0, "jump_score_bounded": 0}
 
 _LIB = None
+_BOUNDED_LIB = None
 
 
 def _lib():
@@ -36,6 +41,21 @@ def _lib():
         lib.mt_cuda_jump_score_max_nq.argtypes = []
         _LIB = lib
     return _LIB
+
+
+def _bounded_lib():
+    global _BOUNDED_LIB
+    if _BOUNDED_LIB is None:
+        from .._build import load
+        lib = load("jump_score_bounded")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.mt_cuda_jump_score_flagged.restype = ci
+        lib.mt_cuda_jump_score_flagged.argtypes = \
+            [vp] * 8 + [ci] * 11 + [vp]
+        lib.mt_cuda_jump_score_flagged_max_nq.restype = ci
+        lib.mt_cuda_jump_score_flagged_max_nq.argtypes = []
+        _BOUNDED_LIB = lib
+    return _BOUNDED_LIB
 
 
 def max_query_width() -> int:
@@ -63,19 +83,25 @@ def _check(name, t, dim, device, rows=None):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def jump_score_cuda(query, query_len, ref1, ref1_len, ref2, ref2_len,
-                    match: int, mismatch: int, open_: int, extend: int,
-                    off_edge: int, jump_score: int) -> torch.Tensor:
-    """Best jump-alignment score per row, int32 (B,), on the query's
-    device. Padded widths are the tensors' own widths."""
+def _check_batch(query, query_len, ref1, ref1_len, ref2, ref2_len):
     _check("query", query, 2, None)
     dev = query.device
-    B, nq = query.shape
+    B = query.shape[0]
     _check("query_len", query_len, 1, dev, B)
     _check("ref1", ref1, 2, dev, B)
     _check("ref1_len", ref1_len, 1, dev, B)
     _check("ref2", ref2, 2, dev, B)
     _check("ref2_len", ref2_len, 1, dev, B)
+
+
+def jump_score_cuda(query, query_len, ref1, ref1_len, ref2, ref2_len,
+                    match: int, mismatch: int, open_: int, extend: int,
+                    off_edge: int, jump_score: int) -> torch.Tensor:
+    """Best jump-alignment score per row, int32 (B,), on the query's
+    device. Padded widths are the tensors' own widths."""
+    _check_batch(query, query_len, ref1, ref1_len, ref2, ref2_len)
+    dev = query.device
+    B, nq = query.shape
     lib = _lib()
     if nq > lib.mt_cuda_jump_score_max_nq():
         raise ValueError(f"query width {nq} exceeds the CUDA jump kernel's "
@@ -95,3 +121,69 @@ def jump_score_cuda(query, query_len, ref1, ref1_len, ref2, ref2_len,
         raise RuntimeError(f"CUDA jump kernel launch failed: cudaError {err}")
     KERNEL_LAUNCHES["jump_score"] += 1
     return out
+
+
+def jump_score_flagged_cuda(query, query_len, ref1, ref1_len, ref2,
+                            ref2_len, match: int, mismatch: int, open_: int,
+                            extend: int, off_edge: int, jump_score: int,
+                            prefix_rounds: int):
+    """The jump DP with the insert chain bounded to 2^prefix_rounds
+    lanes: (best, flag), both int32 (B,) on the query's device; flag is
+    1 on the rows whose score may differ from the exact chain's, else
+    0."""
+    if int(prefix_rounds) < 1:
+        raise ValueError(f"prefix_rounds must be >= 1, got {prefix_rounds}")
+    _check_batch(query, query_len, ref1, ref1_len, ref2, ref2_len)
+    dev = query.device
+    B, nq = query.shape
+    lib = _bounded_lib()
+    if nq > lib.mt_cuda_jump_score_flagged_max_nq():
+        raise ValueError(
+            f"query width {nq} exceeds the bounded CUDA jump kernel's "
+            f"limit {lib.mt_cuda_jump_score_flagged_max_nq()}")
+    best = torch.empty(B, dtype=torch.int32, device=dev)
+    flag = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return best, flag
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mt_cuda_jump_score_flagged(
+            query.data_ptr(), query_len.data_ptr(), ref1.data_ptr(),
+            ref1_len.data_ptr(), ref2.data_ptr(), ref2_len.data_ptr(),
+            best.data_ptr(), flag.data_ptr(), B, nq, ref1.shape[1],
+            ref2.shape[1], int(match), int(mismatch), int(open_),
+            int(extend), int(off_edge), int(jump_score),
+            int(prefix_rounds), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"bounded CUDA jump kernel launch failed: cudaError {err}")
+    KERNEL_LAUNCHES["jump_score_bounded"] += 1
+    return best, flag
+
+
+def rerun_flagged(best, flag, exact_fn, tensors):
+    """Replace ``best`` on the rows where ``flag`` != 0 by
+    ``exact_fn(*rows of tensors)``; the rows are gathered on the
+    tensors' device. Returns (scores, n_flagged)."""
+    rows = torch.nonzero(flag, as_tuple=False)[:, 0]
+    n = int(rows.numel())
+    if n:
+        best = best.clone()
+        best[rows] = exact_fn(*(t.index_select(0, rows).contiguous()
+                                for t in tensors))
+    return best, n
+
+
+def jump_score_bounded_cuda(query, query_len, ref1, ref1_len, ref2,
+                            ref2_len, match: int, mismatch: int, open_: int,
+                            extend: int, off_edge: int, jump_score: int,
+                            prefix_rounds: int):
+    """Exact scores through the bounded kernel plus a rerun of the
+    flagged rows, gathered on the device, through ``jump_score_cuda``:
+    (scores int32 (B,), n_flagged). Reading n_flagged waits for the
+    bounded kernel."""
+    scores = (match, mismatch, open_, extend, off_edge, jump_score)
+    tensors = (query, query_len, ref1, ref1_len, ref2, ref2_len)
+    best, flag = jump_score_flagged_cuda(*tensors, *scores, prefix_rounds)
+    return rerun_flagged(
+        best, flag, lambda *t: jump_score_cuda(*t, *scores), tensors)

@@ -19,6 +19,17 @@ Two forms with one contract, on int32 tensors in the JAX layout
   kernel is held against.
 - ``cuda_jumpscore.jump_score_cuda``, the hand-written Hopper kernel.
 
+The bounded-insert-chain variant (manta_tpu's
+``pallas_jump_score_flagged`` / ``pallas_jump_score_bounded``) has the
+same two forms: ``batched_jump_score_flagged`` /
+``batched_jump_score_bounded`` here, and
+``cuda_jumpscore.jump_score_flagged_cuda`` /
+``jump_score_bounded_cuda``. It bounds the insert chain to the last
+2^prefix_rounds lanes and flags the rows where that may have changed
+the score; the bounded form reruns those rows through the exact form.
+Only the timing entry point (``tools.device_timing``) and the tests run
+it: production scoring stays on the exact kernel, as in the reference.
+
 ``make_bucketed_scorer`` is the production backend: it pads job batches
 to the reference's shape buckets and dispatches on the device it is
 given, the kernel on CUDA and the plain form on the CPU, never one for
@@ -30,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cuda_jumpscore import KERNEL_LAUNCHES, jump_score_cuda
+from .cuda_jumpscore import KERNEL_LAUNCHES, jump_score_cuda, rerun_flagged
 
 BAD = -10000
 NEG = -(1 << 28)
@@ -48,18 +59,41 @@ def from_reference_inputs(q, ql, r1, r1l, r2, r2l, device):
                  .to(device) for a in (q, ql, r1, r1l, r2, r2l))
 
 
-def _maxplus_prefix(f, extend, k):
-    """ci[q] = max_{k<=q}(f[k] + (q-k+1)*extend), exact int32."""
+def _maxplus_prefix(f, extend, k, prefix_rounds=0):
+    """ci[q] = max_{k<=q}(f[k] + (q-k+1)*extend), exact int32.
+
+    With ``prefix_rounds`` = K > 0 the chain is bounded to the last 2^K
+    lanes (K log-step shift+max rounds), and a second value comes back:
+    the lanes where one more round, the chain bounded to 2^(K+1) lanes,
+    is larger (a bool mask). Where 2^K covers every lane the rounds past
+    the width change nothing: the exact chain, and an all-False mask."""
     g = torch.where(f <= BAD, NEG, f - extend * k)
-    run = torch.cummax(g, dim=1).values
-    return torch.clamp_min(run + extend * (k + 1), BAD)
+    if prefix_rounds <= 0:
+        run = torch.cummax(g, dim=1).values
+        return torch.clamp_min(run + extend * (k + 1), BAD), None
+
+    def round_(g, shift):
+        if shift >= g.shape[1]:
+            return g
+        return torch.cat([g[:, :shift],
+                          torch.maximum(g[:, shift:], g[:, :-shift])], dim=1)
+
+    for i in range(prefix_rounds):
+        g = round_(g, 1 << i)
+    out = torch.clamp_min(g + extend * (k + 1), BAD)
+    out2 = torch.clamp_min(round_(g, 1 << prefix_rounds)
+                           + extend * (k + 1), BAD)
+    return out, out2 > out
 
 
 def _walk(query, query_len, ref, ref_len, n_cols, state, best, scores,
-          jump_score, is_ref1):
+          jump_score, is_ref1, prefix_rounds=0, flag=None):
     """Walk the reference columns of one phase (reference
     _make_col_ref1 / _make_col_ref2); columns at or past a row's ref
-    length leave that row's state frozen."""
+    length leave that row's state frozen. With ``prefix_rounds`` > 0 the
+    insert chain is the bounded one and ``flag`` (bool (B,)) gathers the
+    rows whose detection round raised a lane at or below the query end
+    in a walked column."""
     match, mismatch, open_, extend = scores
     pm, pd, pi, pj = state
     B, nq = query.shape
@@ -85,7 +119,7 @@ def _walk(query, query_len, ref, ref_len, n_cols, state, best, scores,
             # q == 0 cutoff)
             vd = torch.cat([bad2, vd[:, 1:]], dim=1)
             f = torch.cat([bad2, vm[:, 1:-1] + open_], dim=1)
-            vi = _maxplus_prefix(f, extend, k)
+            vi, raised = _maxplus_prefix(f, extend, k, prefix_rounds)
             vi[:, :2] = BAD
             vj = torch.maximum(torch.maximum(vm + jump_score,
                                              vi + jump_score), pj)
@@ -95,7 +129,7 @@ def _walk(query, query_len, ref, ref_len, n_cols, state, best, scores,
             # jump -> insert pays no open
             f = torch.cat([bad_col, torch.maximum(vm[:, :-1] + open_,
                                                   pj[:, :-1])], dim=1)
-            vi = _maxplus_prefix(f, extend, k)
+            vi, raised = _maxplus_prefix(f, extend, k, prefix_rounds)
             vi[:, 0] = BAD
             vj = pj
         act = (c < ref_len)[:, None]
@@ -105,14 +139,16 @@ def _walk(query, query_len, ref, ref_len, n_cols, state, best, scores,
         pj = torch.where(act, vj, pj)
         end_val = torch.gather(pm, 1, qn)[:, 0]
         best = torch.where(act[:, 0], torch.maximum(best, end_val), best)
-    return (pm, pd, pi, pj), best
+        if raised is not None:
+            flag = flag | (act[:, 0] & (raised & (k <= qn)).any(dim=1))
+    return (pm, pd, pi, pj), best, flag
 
 
-def batched_jump_score(query, query_len, ref1, ref1_len, ref2, ref2_len,
-                       match, mismatch, open_, extend, off_edge,
-                       jump_score, nq_pad: int, nr1_pad: int, nr2_pad: int):
-    """Max jump-alignment score per batch row (int32 (B,), exact); the
-    plain PyTorch form of manta_tpu's batched_jump_score."""
+def _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
+             match, mismatch, open_, extend, off_edge, jump_score,
+             nq_pad, nr1_pad, nr2_pad, prefix_rounds):
+    """Both phases of the jump DP; returns (best int32 (B,), flag bool
+    (B,) or None for the exact chain)."""
     if query.is_cuda:
         PLAIN_CALLS["cuda"] += 1
     B = query.shape[0]
@@ -139,15 +175,65 @@ def batched_jump_score(query, query_len, ref1, ref1_len, ref2, ref2_len,
 
     cm, cd, ci, cj = fresh()
     best = torch.full((B,), NEG, dtype=torch.int32, device=dev)
-    (cm, cd, ci, cj), best = _walk(
+    flag = (torch.zeros(B, dtype=torch.bool, device=dev)
+            if prefix_rounds > 0 else None)
+    (cm, cd, ci, cj), best, flag = _walk(
         query, query_len, ref1, ref1_len, n_cols(ref1_len, nr1_pad),
-        (cm, cd, ci, cj), best, scores, jump_score, True)
+        (cm, cd, ci, cj), best, scores, jump_score, True,
+        prefix_rounds, flag)
     best = off_edge_best(cm, best)
     cm, cd, ci, _ = fresh()
-    (cm, cd, ci, cj), best = _walk(
+    (cm, cd, ci, cj), best, flag = _walk(
         query, query_len, ref2, ref2_len, n_cols(ref2_len, nr2_pad),
-        (cm, cd, ci, cj), best, scores, jump_score, False)
-    return off_edge_best(cm, best)
+        (cm, cd, ci, cj), best, scores, jump_score, False,
+        prefix_rounds, flag)
+    return off_edge_best(cm, best), flag
+
+
+def batched_jump_score(query, query_len, ref1, ref1_len, ref2, ref2_len,
+                       match, mismatch, open_, extend, off_edge,
+                       jump_score, nq_pad: int, nr1_pad: int, nr2_pad: int):
+    """Max jump-alignment score per batch row (int32 (B,), exact); the
+    plain PyTorch form of manta_tpu's batched_jump_score."""
+    return _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
+                    match, mismatch, open_, extend, off_edge, jump_score,
+                    nq_pad, nr1_pad, nr2_pad, 0)[0]
+
+
+def batched_jump_score_flagged(query, query_len, ref1, ref1_len, ref2,
+                               ref2_len, match, mismatch, open_, extend,
+                               off_edge, jump_score, nq_pad: int,
+                               nr1_pad: int, nr2_pad: int,
+                               prefix_rounds: int):
+    """The jump DP with the insert chain bounded to 2^prefix_rounds
+    lanes: (best int32 (B,), flag int32 (B,)), flag != 0 on the rows
+    whose score may differ from the exact chain's. The plain PyTorch
+    form of manta_tpu's pallas_jump_score_flagged, equal to it in both
+    values on every row."""
+    if prefix_rounds < 1:
+        raise ValueError(f"prefix_rounds must be >= 1, got {prefix_rounds}")
+    best, flag = _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
+                          match, mismatch, open_, extend, off_edge,
+                          jump_score, nq_pad, nr1_pad, nr2_pad,
+                          int(prefix_rounds))
+    return best, flag.to(torch.int32)
+
+
+def batched_jump_score_bounded(query, query_len, ref1, ref1_len, ref2,
+                               ref2_len, match, mismatch, open_, extend,
+                               off_edge, jump_score, nq_pad: int,
+                               nr1_pad: int, nr2_pad: int,
+                               prefix_rounds: int):
+    """Exact scores through the bounded chain plus a rerun of the
+    flagged rows through ``batched_jump_score``: (scores int32 (B,),
+    n_flagged). The plain PyTorch form of manta_tpu's
+    pallas_jump_score_bounded."""
+    tail = (match, mismatch, open_, extend, off_edge, jump_score,
+            nq_pad, nr1_pad, nr2_pad)
+    tensors = (query, query_len, ref1, ref1_len, ref2, ref2_len)
+    best, flag = batched_jump_score_flagged(*tensors, *tail, prefix_rounds)
+    return rerun_flagged(
+        best, flag, lambda *t: batched_jump_score(*t, *tail), tensors)
 
 
 def _score(q, ql, r1, r1l, r2, r2l, scores, jump_score):

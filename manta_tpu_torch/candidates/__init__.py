@@ -1,1 +1,1 @@
-"""Phase-2 candidate refinement bound to the port's jump scorer."""
+"""Phase-2 candidate generation, assembly and refinement."""

@@ -1,1 +1,1 @@
-"""Phase-0 estimates whose JAX package counterparts reach JAX."""
+"""Host-side core models and the phase-0 estimates."""

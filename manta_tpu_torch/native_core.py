@@ -1,12 +1,13 @@
-"""Load ``manta_tpu``'s native core on hosts with or without libdeflate.
+"""Load the native core on hosts with or without libdeflate.
 
-The core (``native/libmanta_core.so``, loaded by ``manta_tpu._native``)
+The core (``native/libmanta_core.so``, built from
+``native/manta_core.cpp`` and loaded by the port's ``_native``)
 links ``libdeflate.so.0`` for BGZF inflate and deflate. Where the host
 has no such library, the subset of its ABI the core uses is built from
 ``csrc/deflate_compat.c`` over zlib, under the soname ``libdeflate.so.0``,
 and loaded before the core, so the dynamic loader resolves the core's
 dependency to it. Child processes (fork workers, a workload generator,
-``manta_tpu._native``'s own ``g++ ... -ldeflate`` rebuild) find it
+``_native``'s own ``g++ ... -ldeflate`` rebuild) find it
 through ``LD_LIBRARY_PATH`` and ``LIBRARY_PATH``, which ``load`` extends
 in that case.
 """
@@ -52,9 +53,9 @@ def load() -> ctypes.CDLL:
     """The native core, loaded once per process. Raises RuntimeError
     naming what the loader could not find."""
     ensure_libdeflate()
-    from manta_tpu import _native
+    from . import _native
     try:
         return _native.get_lib()
     except OSError as e:
         raise RuntimeError(
-            f"cannot load manta_tpu's native core: {e}") from e
+            f"cannot load the native core: {e}") from e

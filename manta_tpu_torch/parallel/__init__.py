@@ -1,1 +1,1 @@
-"""Host-side process parallelism without JAX."""
+"""Host-side process parallelism."""

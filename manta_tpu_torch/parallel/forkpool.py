@@ -1,9 +1,8 @@
 """Fork-worker result draining shared by the phase fan-outs.
 
-Counterpart of ``manta_tpu/parallel/forkpool.py``, which is JAX-free
-itself but sits in a package whose ``__init__`` imports JAX. Host-side
-process parallelism (no JAX, no torch): used by the phase-0 stats
-fan-out, the phase-1 graph fan-out and the phase-2 edge bins.
+Counterpart of ``manta_tpu/parallel/forkpool.py``. Host-side process
+parallelism (no JAX, no torch): used by the phase-0 stats and depth
+fan-outs, the phase-1 graph fan-out and the phase-2 edge bins.
 """
 
 from __future__ import annotations

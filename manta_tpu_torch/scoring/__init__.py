@@ -1,1 +1,1 @@
-"""Split-read scoring routed to the port's device scan."""
+"""Evidence scoring: host forms and the device split-scan router."""

@@ -6,16 +6,12 @@ GetAlignmentStats -> EstimateSVLoci -> MergeSVLoci ->
 GenerateSVCandidates): runs all phases in order, writes the standard
 results tree (variants VCFs + stats).
 
-The port's counterpart of manta_tpu/workflow/run.py, which cannot be
-imported without JAX (its :22 reaches manta_tpu/parallel/__init__.py).
-Run it as ``python -m manta_tpu_torch.workflow.run``. It differs from
-that module, by the module's own line numbers, only in:
+The port's counterpart of manta_tpu/workflow/run.py, on the port's own
+host layers (nothing of ``manta_tpu`` is imported). Run it as
+``python -m manta_tpu_torch.workflow.run``. It differs from that module,
+by the module's own line numbers, only in:
 
-- :17-31 and every lazy import (:86, :229, :264, :269-270, :313, :338,
-  :410, :457, :472, :534, :564, :701, :707, :825-826, :868-869,
-  :989-990, :1047-1049, :1069-1070, :1172-1173): absolute
-  ``manta_tpu.*`` imports; :22, :25 and :30 become the port's
-  ``parallel.forkpool``, ``candidates.refiner`` and ``scoring.scorer``;
+- :17-31 and every lazy import: the port's own modules;
 - :104-142 ``resolve_device_scoring``: 'auto' probes CUDA through
   ``cuda_present`` (new); ``resolve_device`` (new) picks the torch
   device of every device mode and raises for CUDA without a CUDA
@@ -23,11 +19,7 @@ that module, by the module's own line numbers, only in:
 - :170 ``run_workflow`` takes ``device``; :203 resolves it; :208 loads
   the native core through ``manta_tpu_torch.native_core`` first;
 - :223 the log prefix is ``[manta-tpu-torch]``;
-- :338-340 the chromosome depth estimate is the port's
-  ``core.chromdepth`` (the reference's fan-out imports
-  manta_tpu.parallel, hence JAX);
-- :464-484 phase 2 builds ``TorchAssemblyRefiner`` and
-  ``TorchSVScorer`` on ``device``;
+- :464-484 phase 2 hands ``device`` to the refiner and the scorer;
 - :1254 and :1274-1285 the CLI description and --device-scoring help;
 - :1 and :75 docstring wording.
 """
@@ -39,25 +31,25 @@ import os
 import sys
 import time
 
-from manta_tpu.core.fragstats import ReadGroupStatsSet, extract_read_group_stats_set
-from manta_tpu.graph.finder import estimate_sv_loci
-from manta_tpu.graph.locusgraph import SVLocusSetOptions
-from manta_tpu.io.bam import BamReader, open_alignment_reader
-from manta_tpu.io.fasta import FastaReader
-from manta_tpu.scan.scanner import ScannerOptions, SVScanner
-from manta_tpu.candidates.svfinder import SVFinder, iterate_edges
-from manta_tpu.candidates.multijunction import find_multi_junction_candidates
-from manta_tpu.candidates.processor import (
+from ..core.fragstats import ReadGroupStatsSet, extract_read_group_stats_set
+from ..graph.finder import estimate_sv_loci
+from ..graph.locusgraph import SVLocusSetOptions
+from ..io.bam import BamReader, open_alignment_reader
+from ..io.fasta import FastaReader
+from ..scan.scanner import ScannerOptions, SVScanner
+from ..candidates.svfinder import SVFinder, iterate_edges
+from ..candidates.multijunction import find_multi_junction_candidates
+from ..candidates.processor import (
     ProcessorOptions, SVCandidateProcessor, SVWriter,
 )
-from manta_tpu.format.vcfwriter import (
+from ..format.vcfwriter import (
     VcfWriterCandidateSV, VcfWriterDiploidSV, VcfWriterSomaticSV,
     VcfWriterTumorSV,
 )
 
-from ..candidates.refiner import TorchAssemblyRefiner
+from ..candidates.refiner import SVCandidateAssemblyRefiner
 from ..parallel.forkpool import drain_fork_result
-from ..scoring.scorer import TorchSVScorer
+from ..scoring.scorer import SVScorer
 
 PROG_NAME = "GenerateSVCandidates"
 PROG_VERSION = "manta-tpu-0.1.0"
@@ -109,7 +101,7 @@ def plan_scan_segments(header, regions, call_regions, scan_size_mb: int):
         region_list = [(tid, 0, length)
                        for tid, length in enumerate(header.ref_lengths)]
     if call_regions is not None:
-        from manta_tpu.workflow.config import read_call_regions
+        from ..workflow.config import read_call_regions
         bed = read_call_regions(call_regions)
         restricted = []
         for (tid, beg, end) in region_list:
@@ -206,7 +198,7 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     ``device``: the torch device of contig jump scoring and, for
     'exact' and 'mxu', of the split scan when device scoring is on
     (None means CUDA; ``"cpu"`` runs the plain PyTorch forms). Every
-    other argument is ``manta_tpu.workflow.run``'s."""
+    other argument is that of the JAX package's ``workflow.run``."""
     # advanced defaults tier (reference: configManta.py.ini values
     # parsed by configureUtil.py; see workflow/config_defaults.ini)
     adv = dict(ADVANCED_DEFAULTS)
@@ -268,7 +260,7 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     # resumes at the last completed task (reference: pyflow completed-
     # task records + runWorkflow.py re-execution semantics,
     # docs/userGuide/README.md:631-633)
-    from manta_tpu.workflow.tasks import TaskTracker, content_digest
+    from ..workflow.tasks import TaskTracker, content_digest
     tracker_sig = {
         "bams": bams, "is_tumor": is_tumor, "reference": reference,
         "regions": regions, "is_exome": is_exome, "is_rna": is_rna,
@@ -303,13 +295,13 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
             # reference's per-BAM GetAlignmentStats tasks
             # (mantaWorkflow.py:190-202)
             import multiprocessing as mp
-            from manta_tpu.core.fragstats import ReadGroupStats
+            from ..core.fragstats import ReadGroupStats
             ctx = mp.get_context("fork")
             queue = ctx.SimpleQueue()
 
             def stats_worker(i, p):
-                from manta_tpu.io.bam import BamReader
-                from manta_tpu.io.bgzf import set_worker_io_threads
+                from ..io.bam import BamReader
+                from ..io.bgzf import set_worker_io_threads
                 fanout = min(n_jobs, len(bams))
                 set_worker_io_threads(fanout)
                 BamReader.set_worker_cache_budget(fanout)
@@ -352,7 +344,7 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
         stats_list = [stats_set.get_stats(p) for p in bams]
         stats_set.save(stats_path)
         tasks.mark_done("alignmentStats", [stats_path])
-    from manta_tpu.workflow.stats import (
+    from ..workflow.stats import (
         CpuTimes, EdgeStatsTracker, TimeBlock,
         write_alignment_stats_summary, write_graph_stats,
     )
@@ -449,7 +441,7 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
                 f"{time.perf_counter() - save_t0:.1f}s")
     # load for phase 2: the serialization round-trip compacts empty
     # locus slots, matching the reference's save/load locus renumbering
-    from manta_tpu.graph.locusgraph import SVLocusSet
+    from ..graph.locusgraph import SVLocusSet
     load_t0 = time.perf_counter()
     locus_set = SVLocusSet.load(graph_path)
     log(f"graph loaded for phase 2 in {time.perf_counter() - load_t0:.1f}s")
@@ -496,14 +488,14 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     def build_components(bin_suffix: str = ""):
         """Construct per-process phase-2 pipeline components
         (readers/writers re-opened per process)."""
-        from manta_tpu.format.vcfwriter import VcfWriterRnaSV
+        from ..format.vcfwriter import VcfWriterRnaSV
         comp_fasta = FastaReader(reference)
         finder = SVFinder(scanner, bams, is_tumor, locus_set.sample_counts,
                           comp_fasta, chrom_depths=chrom_depths,
                           is_rna=is_rna,
                           skip_evidence_signal_filter=(
                               not adv["enable_evidence_signal_filter"]))
-        refiner = TorchAssemblyRefiner(
+        refiner = SVCandidateAssemblyRefiner(
             scanner, finder.readers, is_tumor, comp_fasta,
             chrom_depths=chrom_depths,
             min_candidate_variant_size=min_candidate_variant_size,
@@ -511,8 +503,8 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
             is_unstranded_rna=is_unstranded_rna,
             enable_remote_read_retrieval=enable_remote_retrieval,
             jump_score_backend=jump_backend, device=scoring_device)
-        from manta_tpu.scoring.scorer import CallOptionsDiploid, CallOptionsSomatic
-        scorer = TorchSVScorer(
+        from ..scoring.scorer import CallOptionsDiploid, CallOptionsSomatic
+        scorer = SVScorer(
             scanner, finder.readers, is_tumor, comp_fasta,
             chrom_depths=chrom_depths, is_rna=is_rna,
             use_device_scoring=device_scoring, device=scoring_device,
@@ -573,7 +565,7 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
         tracker = EdgeStatsTracker()
         evidence_writer = None
         if generate_evidence_bam:
-            from manta_tpu.scoring.evidence_bam import SVEvidenceWriter
+            from ..scoring.evidence_bam import SVEvidenceWriter
             evidence_dir = os.path.join(run_dir, "results", "evidence")
             os.makedirs(evidence_dir, exist_ok=True)
             out_paths = []
@@ -603,7 +595,7 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
         junctions (stage 2; SURVEY §2.4 P3 "batch many edges per TPU
         step"), then in-order selection/scoring/output (stage 3).
         Returns the edge runtime log lines."""
-        from manta_tpu.core.svmodel import is_complex_sv
+        from ..core.svmodel import is_complex_sv
         from copy import copy as _copy
         finder = comps["finder"]
         processor = comps["processor"]
@@ -740,13 +732,13 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     # final output stage (reference: mantaWorkflow.py sortAllVcfs):
     # sort + dedup, ploidy-filter diploid, extract small indels, then
     # bgzip + tabix into results/variants
-    from manta_tpu.workflow.postprocess import (
+    from ..workflow.postprocess import (
         extract_small_indel_lines, ploidy_filter_lines, sort_vcf_lines,
         swap_cmdline_lines,
     )
     final_cmdline = cmdline if cmdline is not None else \
         " ".join(sys.argv)
-    from manta_tpu.format.tabix import write_vcf_gz
+    from ..format.tabix import write_vcf_gz
 
     def read_lines(name):
         path = os.path.join(unsorted_dir, name)
@@ -864,8 +856,8 @@ def _run_edges_parallel(all_edges, locus_set, build_components, run_edges,
     recognizes completed bins and never reuses a stale work plan."""
     import multiprocessing as mp
     import pickle
-    from manta_tpu.workflow.stats import EdgeStatsTracker
-    from manta_tpu.workflow.tasks import content_digest
+    from ..workflow.stats import EdgeStatsTracker
+    from ..workflow.tasks import content_digest
     # the merged SVGenTotalHours is the SUM of bin-worker lifetimes
     # plus this parent's span (reference: GSCEdgeStatsData::merge sums
     # lifeTime across per-process stats, GSCEdgeStats.hpp:139-144)
@@ -907,8 +899,8 @@ def _run_edges_parallel(all_edges, locus_set, build_components, run_edges,
             return False
 
     def worker(bi, edges):
-        from manta_tpu.io.bam import BamReader
-        from manta_tpu.io.bgzf import set_worker_io_threads
+        from ..io.bam import BamReader
+        from ..io.bgzf import set_worker_io_threads
         fanout = min(max(1, n_jobs), len(bins))
         set_worker_io_threads(fanout)
         BamReader.set_worker_cache_budget(fanout)
@@ -1028,8 +1020,8 @@ def _run_edges_parallel(all_edges, locus_set, build_components, run_edges,
 
     # merge per-bin evidence bams
     if generate_evidence_bam:
-        from manta_tpu.io.bam import BamReader
-        from manta_tpu.io.bamwriter import BamWriter
+        from ..io.bam import BamReader
+        from ..io.bamwriter import BamWriter
         for smp, bam_path in enumerate(bams):
             prefix = os.path.splitext(os.path.basename(bam_path))[0]
             final = os.path.join(evidence_dir, f"evidence_{smp}.{prefix}.bam")
@@ -1086,9 +1078,9 @@ def _estimate_sv_loci_parallel(bams, is_tumor, scanner, graph_opt,
     records)."""
     import multiprocessing as mp
     import tempfile
-    from manta_tpu.workflow.tasks import content_digest
-    from manta_tpu.graph.locusgraph import SVLocusSet
-    from manta_tpu.graph.finder import group_segments
+    from ..workflow.tasks import content_digest
+    from ..graph.locusgraph import SVLocusSet
+    from ..graph.finder import group_segments
     groups = group_segments(region_list)
     ctx = mp.get_context("fork")
     queue = ctx.SimpleQueue()
@@ -1108,8 +1100,8 @@ def _estimate_sv_loci_parallel(bams, is_tumor, scanner, graph_opt,
         # one fork serves a CHUNK of groups, but each group still gets
         # its own independent graph + file (per-group merge semantics);
         # results stream back as each group finishes
-        from manta_tpu.io.bam import BamReader
-        from manta_tpu.io.bgzf import set_worker_io_threads
+        from ..io.bam import BamReader
+        from ..io.bgzf import set_worker_io_threads
         fanout = min(n_jobs, len(groups))
         set_worker_io_threads(fanout)
         BamReader.set_worker_cache_budget(fanout)
@@ -1211,8 +1203,8 @@ def merge_saved_graphs_native(paths):
 
     import numpy as np
 
-    from manta_tpu.graph.locusgraph import SVLocusSetOptions
-    from manta_tpu.graph.native_set import NativeLocusSet
+    from ..graph.locusgraph import SVLocusSetOptions
+    from ..graph.native_set import NativeLocusSet
 
     nat = None
     meta0 = None

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from manta_tpu.align.aligners import AlignmentScores, GlobalJumpAligner
+from manta_tpu_torch.align.aligners import AlignmentScores, GlobalJumpAligner
 from manta_tpu_torch import native_core
 from manta_tpu_torch.align import cuda_jumpscore, cuda_splitscore
 from manta_tpu_torch.align import device_jumpscore as dj
@@ -122,6 +122,99 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="limit"):
         cuda_jumpscore.jump_score_cuda(wide, one, wide[:, :8], one,
                                        wide[:, :8], one, *ARGS)
+
+
+# ---- the bounded jump DP (csrc/jump_score_bounded.cu)
+
+def _bounded_jobs(rng, B, nq_max, nr_max, rounds):
+    """_jobs, plus a junction insertion longer than 2^(rounds+1) lanes
+    (flags), queries of 2^rounds + 1 and 2^rounds bases (the shortest
+    that flags, through the first lane of the detection window alone,
+    and the longest that cannot) and one shorter still."""
+    seq = lambda n: bytes(b"ACGT"[i] for i in rng.integers(0, 4, n))
+    jobs = _jobs(rng, B, nq_max, nr_max)
+    half = max(2, min(50, (nq_max - (2 << rounds) - 9) // 2))
+    left, right = seq(half), seq(half)
+    ins = seq(min((2 << rounds) + 8, max(0, nq_max - 2 * half)))
+    jobs.append((left + ins + right, seq(30) + left, right + seq(30)))
+    for n in ((1 << rounds) + 1, 1 << rounds, (1 << rounds) - 1):
+        jobs.append((seq(n), jobs[0][1], jobs[0][2]))
+    return jobs
+
+
+@pytest.mark.parametrize("rounds", (1, 3, 5, 7))
+@pytest.mark.parametrize("B,nq_max,nr_max", [
+    (1, 200, 300),          # one job (plus the crafted rows)
+    (5, 1100, 900),         # wider than one block's lanes at L = 1
+    (9, 400, 800), (2, 8192, 2048)])
+def test_bounded_kernel_matches_plain(cuda, B, nq_max, nr_max, rounds):
+    """(best, flag) of the kernel == the plain flagged form on every
+    row; bounded + rerun == the exact kernel == the plain exact form."""
+    jobs = _bounded_jobs(np.random.default_rng(B + nq_max), B, nq_max,
+                         nr_max, rounds)
+    t = dj.from_reference_inputs(*dj.pad_jobs(jobs, len(jobs) + 2), cuda)
+    nq, nr1, nr2 = t[0].shape[1], t[2].shape[1], t[4].shape[1]
+    before = dict(cuda_jumpscore.KERNEL_LAUNCHES)
+    best, flag = cuda_jumpscore.jump_score_flagged_cuda(*t, *ARGS, rounds)
+    assert cuda_jumpscore.KERNEL_LAUNCHES["jump_score_bounded"] == \
+        before["jump_score_bounded"] + 1
+    fixed, n_flagged = cuda_jumpscore.jump_score_bounded_cuda(*t, *ARGS,
+                                                              rounds)
+    exact = cuda_jumpscore.jump_score_cuda(*t, *ARGS)
+    p_best, p_flag = dj.batched_jump_score_flagged(*t, *ARGS, nq, nr1, nr2,
+                                                   rounds)
+    p_exact = dj.batched_jump_score(*t, *ARGS, nq, nr1, nr2)
+    torch.cuda.synchronize()
+    assert best.dtype == torch.int32 and flag.dtype == torch.int32
+    assert torch.equal(best, p_best)
+    assert torch.equal(flag, p_flag)
+    assert torch.equal(fixed, exact) and torch.equal(exact, p_exact)
+    assert n_flagged == int((flag != 0).sum())
+    assert flag[len(jobs) - 4] == 1 or (2 << rounds) + 8 > nq_max
+    # 2^K + 1 bases flag; 2^K, 2^K - 1 and the two pad rows do not
+    assert flag[len(jobs) - 3:].tolist() == [1, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("rounds", (3, 5))
+def test_bounded_kernel_single_row(cuda, rounds):
+    jobs = _jobs(np.random.default_rng(8), 1, 300, 500)
+    t = dj.from_reference_inputs(*dj.pad_jobs(jobs, 1), cuda)
+    assert t[0].shape[0] == 1
+    nq, nr1, nr2 = t[0].shape[1], t[2].shape[1], t[4].shape[1]
+    best, flag = cuda_jumpscore.jump_score_flagged_cuda(*t, *ARGS, rounds)
+    p_best, p_flag = dj.batched_jump_score_flagged(*t, *ARGS, nq, nr1, nr2,
+                                                   rounds)
+    assert torch.equal(best, p_best) and torch.equal(flag, p_flag)
+
+
+def test_bounded_kernel_window_covers_every_lane(cuda):
+    """2^K past the query width: the exact chain, no flag."""
+    jobs = _jobs(np.random.default_rng(2), 6, 120, 200)
+    t = dj.from_reference_inputs(*dj.pad_jobs(jobs, 8), cuda)
+    best, flag = cuda_jumpscore.jump_score_flagged_cuda(*t, *ARGS, 8)
+    assert torch.equal(best, cuda_jumpscore.jump_score_cuda(*t, *ARGS))
+    assert not flag.any()
+
+
+def test_bounded_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    jobs = _jobs(np.random.default_rng(4), 3, 50, 90)
+    t = dj.from_reference_inputs(*dj.pad_jobs(jobs, 3), cuda)
+    before = dict(cuda_jumpscore.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_jumpscore.jump_score_flagged_cuda(t[0].cpu(), *t[1:], *ARGS, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_jumpscore.jump_score_bounded_cuda(
+            *(x.cpu() for x in t), *ARGS, 3)
+    with pytest.raises(TypeError):
+        cuda_jumpscore.jump_score_flagged_cuda(t[0].long(), *t[1:], *ARGS, 3)
+    with pytest.raises(ValueError, match="prefix_rounds"):
+        cuda_jumpscore.jump_score_flagged_cuda(*t, *ARGS, 0)
+    wide = torch.ones((1, 17408), dtype=torch.int32, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="limit"):
+        cuda_jumpscore.jump_score_flagged_cuda(wide, one, wide[:, :8], one,
+                                               wide[:, :8], one, *ARGS, 3)
+    assert cuda_jumpscore.KERNEL_LAUNCHES == before
 
 
 # ---- the split scan (csrc/split_score.cu)

@@ -9,14 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from manta_tpu.align.aligners import (
-    AlignmentScores, GlobalJumpAligner, jump_score_batch,
-)
 from manta_tpu.align.device_jumpscore import (
     batched_jump_score as jax_batched_jump_score,
 )
 from manta_tpu.align.pallas_jumpscore import pallas_jump_score
 from manta_tpu_torch.align import cuda_jumpscore
+from manta_tpu_torch.align.aligners import (
+    AlignmentScores, GlobalJumpAligner, jump_score_batch,
+)
 from manta_tpu_torch.align import device_jumpscore as dj
 
 from test_pallas_jumpscore import _pad, _rand_jobs

@@ -86,8 +86,8 @@ import numpy as np
 repo, compat = sys.argv[1:3]
 sys.path.insert(0, repo)
 ctypes.CDLL(compat, mode=ctypes.RTLD_GLOBAL)
-from manta_tpu import _native
-from manta_tpu._native import i32p, i64p, u8p
+from manta_tpu_torch import _native
+from manta_tpu_torch._native import i32p, i64p, u8p
 lib = _native.get_lib()
 with open("/proc/self/maps") as f:
     libs = sorted({ln.split()[-1] for ln in f if "libdeflate" in ln})

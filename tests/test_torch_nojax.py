@@ -39,7 +39,7 @@ print(json.dumps({"modules": names,
 
 _SCORE = r"""
 import numpy as np
-from manta_tpu.align.aligners import AlignmentScores, jump_score_batch
+from manta_tpu_torch.align.aligners import AlignmentScores, jump_score_batch
 from manta_tpu_torch.align.device_jumpscore import make_bucketed_scorer
 rng = np.random.default_rng(7)
 seq = lambda n: bytes(b"ACGT"[i] for i in rng.integers(0, 4, n))

@@ -20,8 +20,10 @@ from manta_tpu.align.device_splitscore_mxu import (
     junction_split_score as jax_junction_split_score,
 )
 from manta_tpu.align.pallas_splitscore import pallas_split_score
-from manta_tpu.io.bam import BamReader
-from manta_tpu.scoring.evidence import QscoreSnp, split_read_scan_multi
+from manta_tpu_torch.io.bam import BamReader
+from manta_tpu_torch.scoring.evidence import (
+    QscoreSnp, split_read_scan_multi,
+)
 from manta_tpu_torch.align import cuda_splitscore
 from manta_tpu_torch.align import device_splitscore as ds
 from manta_tpu_torch.align.device_splitscore_mxu import junction_split_score

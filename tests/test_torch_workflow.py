@@ -20,7 +20,7 @@ from manta_tpu.workflow.run import main as reference_main
 from manta_tpu_torch.align import cuda_jumpscore
 from manta_tpu_torch.align import device_jumpscore as dj
 from manta_tpu_torch.scoring.device_scan import SCAN_STATS, DeviceScanContext
-from manta_tpu_torch.scoring.scorer import TorchSVScorer
+from manta_tpu_torch.scoring.scorer import SVScorer
 from manta_tpu_torch.workflow import run as port
 
 from test_torch_splitscore import one_torch_thread  # noqa: F401  (autouse)
@@ -177,16 +177,16 @@ def test_demo_split_scan_modes_on_cpu(tmp_path, demo_fasta, normal_bam,
 
 def test_torch_scorer_binds_the_ports_split_scan():
     for mode in ("exact", "mxu", True):
-        sc = TorchSVScorer(None, [], [], None, use_device_scoring=mode,
-                           device="cpu")
+        sc = SVScorer(None, [], [], None, use_device_scoring=mode,
+                      device="cpu")
         assert isinstance(sc._device_scan, DeviceScanContext)
         assert sc._device_scan._mxu == (mode == "mxu")
         assert sc._device_scan.device == torch.device("cpu")
     for mode in ("jump", None, False):
-        assert TorchSVScorer(None, [], [], None, use_device_scoring=mode,
-                             device="cpu")._device_scan is None
+        assert SVScorer(None, [], [], None, use_device_scoring=mode,
+                        device="cpu")._device_scan is None
     with pytest.raises(ValueError, match="needs a device"):
-        TorchSVScorer(None, [], [], None, use_device_scoring="exact")
+        SVScorer(None, [], [], None, use_device_scoring="exact")
 
 
 def _options(main, capsys):
