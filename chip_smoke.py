@@ -15,19 +15,26 @@ contig jump scoring (--device-scoring jump), the device split-read scan
    started together;
 3. kernel (jump): the CUDA kernel, the plain PyTorch form on the card
    and the native score batch give identical int32 scores at the
-   scorer's bucket shapes; kernel and plain form are timed with CUDA
-   events;
+   scorer's bucket shapes, the main path's bucket among them; kernel,
+   the block-barrier kernel it replaced and the plain form are timed
+   with CUDA events; then, untimed, widths at a warp's edge (nq + 1 =
+   32 x lanes and one more), a row far shorter than its bucket, and
+   every layout (one warp a row, several) against the plain form;
 3b. kernel (bounded jump): at the same shapes and prefix_rounds 3 and
    5, on random jobs mixed with a long junction insertion (flags) and a
    short query (cannot flag): score and flag of the CUDA kernel equal
    the plain flagged form on every row, and the bounded form with its
    rerun equals the exact kernel and the exact plain form; timed in
    turns with the exact kernel;
-4. kernel (split scan): the CUDA kernel and the plain PyTorch form on
-   the card give bit-equal float32 scores and equal positions at the
-   bucketed shapes the device scan context gives the kernel, and both
-   equal the native host scan on real demo reads; kernel, plain form
-   and native scan are timed;
+4. kernel (split scan): the CUDA kernel, through the call with a row
+   per (read, target) pair and through the factored call (each read
+   and target once), and the plain PyTorch forms on the card give
+   bit-equal float32 scores and equal positions at the bucketed shapes
+   the device scan context gives the kernel, and all equal the native
+   host scan on real demo reads; kernel, plain form and native scan are
+   timed; then the router itself (DeviceScanContext.scan_multi) on a
+   typical call: equal to the native scan, one host-to-device and one
+   device-to-host copy a call in the profiler's trace, ms a call;
 5. demo: the tumor/normal demo through the port's workflow with
    scoring off, jump, exact and mxu on CUDA; the somatic VCF body
    equals the oracle's (byte for byte; mxu at call level);
@@ -89,14 +96,17 @@ KERNELS = {
 # as long as queries, as around a real contig: the native score batch
 # departs from the full traceback aligner on some queries longer than
 # both references together (ROADMAP.md Queue 3)
-KERNEL_SHAPES = ((64, 400, 800), (256, 128, 256), (8, 4096, 4096),
-                 (8, 6000, 6000))
+KERNEL_SHAPES = ((64, 400, 800), (8, 250, 1000), (256, 128, 256),
+                 (8, 4096, 4096), (8, 6000, 6000))
+# the bucket of the WGS-shaped workflow run's dispatches (B, nq, nr1, nr2)
+MAIN_PATH_BUCKET = (8, 256, 1024, 1024)
 # (rows B = reads x 2 targets, read tier Lp, scan tier Tp): the shapes
 # DeviceScanContext gives the split kernel; demo reads are 101 bp (Lp
 # 256), three joined make ~300 bp (Lp 512). The second is the shape of
 # manta_tpu/align/pallas_splitscore.py:19-21 (B=512, T=500, L=150)
 SPLIT_SHAPES = ((64, 256, 512), (512, 256, 512), (2048, 256, 1024),
-                (64, 512, 2048))
+                (64, 512, 2048), (94, 256, 512))
+SPLIT_TYPICAL = 4            # a typical workflow call: ~93 pairs
 SPLIT_REPORTED = 1           # the index of the shape in the kernels line
 FLANK = 50
 # germline WGS-shaped workload: 2 x 8 Mb at 35x, about 5.6 M reads
@@ -169,8 +179,16 @@ def build() -> None:
         log = os.path.join(_build.BUILD_DIR, f"lib{name}.so.log")
         with open(log) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
-                    print("  " + line.strip())
+                # the mangled name holds the kernel and its template
+                # arguments: ...jump_systolic_kernelILi33EE... is <33>
+                m = re.search(r"Function properties for \S*?\d+"
+                              r"([a-z_]+_kernel)(?:I([A-Za-z0-9]+?)EE)?", line)
+                if m:
+                    targs = re.findall(r"L[ib](\d+)", m.group(2) or "")
+                    print(f"  {m.group(1)}"
+                          + (f"<{', '.join(targs)}>" if targs else ""))
+                elif "registers" in line or "spill" in line:
+                    print("    " + line.strip().replace("ptxas info    : ", ""))
 
 
 def _jobs(rng, B, nq_max, nr_max):
@@ -200,7 +218,11 @@ def _jobs(rng, B, nq_max, nr_max):
     return jobs
 
 
-def _time_ms(fn, runs=TIMED_RUNS):
+def _time_ms(fn, runs=TIMED_RUNS, calls=1):
+    """Median over ``runs`` of the CUDA-event time of one call, each
+    taken around ``calls`` calls in a row: with several, the host's
+    work for the next call hides behind the device's on the last (a
+    single call of a kernel under ~0.1 ms times the wrapper)."""
     import torch
     fn()                                          # warm-up
     torch.cuda.synchronize()
@@ -209,10 +231,11 @@ def _time_ms(fn, runs=TIMED_RUNS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -281,6 +304,7 @@ def check_jump_kernel() -> dict:
     rng = np.random.default_rng(20261016)
     bench = None
     max_err = 0
+    shapes_seen = set()
     for B, nq_max, nr_max in KERNEL_SHAPES:
         # two pad rows of length 1, as the bucketed scorer adds them
         jobs = _jobs(rng, B - 2, nq_max, nr_max)
@@ -305,22 +329,105 @@ def check_jump_kernel() -> dict:
                 f"plain {plain[bad[:8]].tolist()} native "
                 f"{np.r_[native, kern[B - 2:]][bad[:8]].tolist()}")
         max_err = max(max_err, err)
-        k_ms = _time_ms(lambda: cuda_jumpscore.jump_score_cuda(*t, *args))
+        cuda_jumpscore.raise_on_kernel_error()
+        # the block-barrier kernel this one replaced still runs the
+        # exact chain where the bounded entry's window covers every lane
+        old = cuda_jumpscore.jump_score_flagged_cuda(*t, *args, 30)[0]
+        if not np.array_equal(old.cpu().numpy(), kern):
+            raise AssertionError(f"block-barrier kernel disagrees at B={B} "
+                                 f"nq={nq}")
+        # in turns: old, new, new, old
+        o_ms = [_time_ms(lambda: cuda_jumpscore.jump_score_flagged_cuda(
+            *t, *args, 30), calls=5)]
+        k_ms = _time_ms(lambda: cuda_jumpscore.jump_score_cuda(*t, *args),
+                        runs=2 * TIMED_RUNS, calls=5)
+        o_ms.append(_time_ms(lambda: cuda_jumpscore.jump_score_flagged_cuda(
+            *t, *args, 30), calls=5))
         p_ms = _time_ms(lambda: dj.batched_jump_score(*t, *args, nq, nr1,
-                                                     nr2), runs=3)
+                                                     nr2), runs=1)
+        lanes, warps = cuda_jumpscore.kernel_layout(B, nq)
         cells = B * nq * (nr1 + nr2)
         bound = _jump_bound((q, ql, r1, r1l, r2, r2l), JUMP_OPS_PER_CELL, 1)
-        print(f"B={B} nq={nq} nr1={nr1} nr2={nr2}: kernel == plain == "
-              f"native on {B} rows (tolerance: exact); kernel "
-              f"{k_ms:.4f} ms ({cells / k_ms / 1e6:.2f} Gcells/s), plain "
-              f"{p_ms:.2f} ms ({cells / p_ms / 1e6:.4f} Gcells/s); bound "
+        print(f"B={B} nq={nq} nr1={nr1} nr2={nr2}"
+              + (" (the main path's bucket)"
+                 if (B, nq, nr1, nr2) == MAIN_PATH_BUCKET else "")
+              + f": kernel == plain == native on {B} rows (tolerance: "
+              f"exact); {lanes} lanes a thread, {warps} warp(s) a row; "
+              f"kernel {k_ms:.4f} ms ({cells / k_ms / 1e6:.2f} Gcells/s; "
+              f"CUDA events around 5 calls), "
+              f"block-barrier kernel before and after {o_ms[0]:.4f}, "
+              f"{o_ms[1]:.4f} ms, plain {p_ms:.2f} ms "
+              f"({cells / p_ms / 1e6:.4f} Gcells/s); bound "
               f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} "
               f"({bound['bound_ms'] / k_ms:.2%} reached), dependent chain "
               f"{int((r1l + r2l).max())} columns", flush=True)
+        shapes_seen.add((B, nq, nr1, nr2))
         if bench is None:
             bench = {"ms": k_ms, "plain_ms": p_ms, **bound}
+    if MAIN_PATH_BUCKET not in shapes_seen:
+        raise AssertionError(f"the main path's bucket {MAIN_PATH_BUCKET} "
+                             f"was not among {sorted(shapes_seen)}")
     bench["max_abs_err"] = max_err
+    _check_jump_layouts(rng, scores, jump, args)
     return bench
+
+
+def _check_jump_layouts(rng, scores, jump, args) -> None:
+    """Untimed: widths at a warp's edge (nq + 1 = 32 x lanes, and one
+    lane more) with a 3-base row among full ones, in the kernel's own
+    layout and with the lanes named; then one width in every layout,
+    from one warp a row to many. Each against the plain form and the
+    native score batch, exact."""
+    import numpy as np
+    import torch
+    from manta_tpu_torch.align import cuda_jumpscore as cj
+    from manta_tpu_torch.align import device_jumpscore as dj
+    from manta_tpu_torch.align.aligners import jump_score_batch
+
+    def padded(jobs, nq, nr):
+        # a junction insertion can make a query longer than asked for
+        q, ql = dj._pad_to([j[0][:nq] for j in jobs], len(jobs), nq, 1)
+        r1, r1l = dj._pad_to([j[1] for j in jobs], len(jobs), nr, 2)
+        r2, r2l = dj._pad_to([j[2] for j in jobs], len(jobs), nr, 2)
+        return dj.from_reference_inputs(q, ql, r1, r1l, r2, r2l, "cuda")
+
+    seen = set()
+    for lanes in cj.LANE_CHOICES:
+        for over in (0, 1):
+            nq = 32 * lanes - 1 + over
+            jobs = _jobs(rng, 6, nq, 2 * nq)
+            jobs.append((jobs[0][0][:3], jobs[0][1], jobs[0][2]))
+            t = padded(jobs, nq, 2 * nq)
+            plain = dj.batched_jump_score(*t, *args, nq, 2 * nq, 2 * nq)
+            native = jump_score_batch([(j[0][:nq], j[1], j[2]) for j in jobs],
+                                      scores, jump)
+            for named in (0, lanes):
+                kern = cj.jump_score_cuda(*t, *args, lanes=named)
+                if not (torch.equal(kern, plain) and np.array_equal(
+                        kern.cpu().numpy(), native)):
+                    raise AssertionError(
+                        f"jump kernel disagrees at nq={nq}, lanes={named}")
+                seen.add(cj.kernel_layout(len(jobs), nq, named))
+    nq, nr = 700, 900
+    jobs = _jobs(rng, 20, nq, nr) + _jobs(rng, 6, 60, nr)
+    t = padded(jobs, nq, nr)
+    plain = dj.batched_jump_score(*t, *args, nq, nr, nr)
+    for lanes in cj.LANE_CHOICES:
+        kern = cj.jump_score_cuda(*t, *args, lanes=lanes)
+        if not torch.equal(kern, plain):
+            raise AssertionError(f"jump kernel disagrees at nq={nq}, "
+                                 f"lanes={lanes}")
+        seen.add(cj.kernel_layout(len(jobs), nq, lanes))
+    cj.raise_on_kernel_error()
+    one = sorted(x for x in seen if x[1] == 1)
+    many = sorted(x for x in seen if x[1] > 1)
+    if not one or not many:
+        raise AssertionError(f"layouts checked: {sorted(seen)}")
+    print(f"widths nq + 1 = 32 x lanes and one more (lanes "
+          f"{list(cj.LANE_CHOICES)}), a 3-base row in each, and nq={nq} in "
+          f"every layout: kernel == plain == native (tolerance: exact); "
+          f"(lanes, warps a row) one warp {one}, several {many}",
+          flush=True)
 
 
 def check_bounded_kernel() -> dict:
@@ -530,6 +637,21 @@ def check_split_kernel(card: str) -> dict:
         if no_pos == 0 or not (arrays[0] == ord("R")).any() \
                 or not (arrays[2] == ord("M")).any():
             raise AssertionError("inputs lack no-position or IUPAC rows")
+        # the factored call: each read and each target once
+        f = ds.factored_from_replicated(*arrays, 2, "cuda")
+        fargs = (*f, FLANK, *luts, Tp)
+        fb, fp = cuda_splitscore.split_score_factored_cuda(*fargs)
+        qb, qp = ds.batched_split_score_factored(*fargs)
+        torch.cuda.synchronize()
+        if not (torch.equal(fb, qb) and torch.equal(fp, qp)
+                and np.array_equal(fb.cpu().numpy().ravel(), kb)
+                and np.array_equal(fp.cpu().numpy().ravel(), kp)):
+            raise AssertionError(
+                f"factored split kernel != its plain form or the "
+                f"replicated call at B={B} Lp={Lp} Tp={Tp}")
+        f_ms = _device_ms(
+            lambda: cuda_splitscore.split_score_factored_cuda(*fargs),
+            "split_score_kernel")
         fin = np.isfinite(kb)
         max_err = max(max_err, float(np.abs(kb[fin] - pb[fin]).max()))
         # useful terms: n_k valid positions x read_len bases per row
@@ -550,11 +672,15 @@ def check_split_kernel(card: str) -> dict:
         device = ("not measured" if d_ms is None else
                   f"{d_ms:.5f} ms ({B / d_ms * 1e3:.0f} rows/s, "
                   f"{terms / d_ms / 1e6:.3f} Gterms/s)")
+        factored = ("not measured" if f_ms is None else f"{f_ms:.5f} ms")
         print(f"B={B} Lp={Lp} Tp={Tp}: kernel == plain on {B} rows "
               f"({no_pos} with no scan position; tolerance: bit-equal), "
-              f"== native on {len(rows)} rows; kernel call {k_ms:.4f} ms "
+              f"== native on {len(rows)} rows; factored call ({B // 2} "
+              f"reads x 2 targets) == its plain form == the same rows; "
+              f"kernel call {k_ms:.4f} ms "
               f"(CUDA events; {B / k_ms * 1e3:.0f} rows/s), kernel device "
-              f"time {device} (profiler), plain {p_ms:.3f} ms "
+              f"time {device} (profiler), factored {factored}, "
+              f"plain {p_ms:.3f} ms "
               f"({B / p_ms * 1e3:.0f} rows/s, {terms / p_ms / 1e6:.4f} "
               f"Gterms/s), native one host core {n_ms:.3f} ms for "
               f"{len(rows)} rows ({len(rows) / n_ms * 1e3:.0f} rows/s)",
@@ -567,8 +693,73 @@ def check_split_kernel(card: str) -> dict:
             print(f"    bound {bound['bound_ms']:.6f} ms by "
                   f"{bound['bound_by']}", flush=True)
             reported = {"ms": k_ms, "plain_ms": p_ms, **bound}
+        if si == SPLIT_TYPICAL:
+            _check_scan_router(batch, idx, valid, qconv, targets, ranges)
     reported["max_abs_err"] = max_err
     return reported
+
+
+def _check_scan_router(batch, idx, valid, qconv, targets, ranges) -> None:
+    """DeviceScanContext.scan_multi on the card, on a typical call: equal
+    to the native host scan bit for bit; one host-to-device and one
+    device-to-host copy a call, counted in a profiler trace; host-clock
+    ms a call beside the native scan's."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from manta_tpu_torch.scoring import device_scan
+    from manta_tpu_torch.scoring.evidence import split_read_scan_multi
+
+    ctx = device_scan.DeviceScanContext(device="cuda")
+    for k in device_scan.EXACT_COPIES:
+        device_scan.EXACT_COPIES[k] = 0
+    call = lambda i=idx: ctx.scan_multi(FLANK, batch, i, qconv, targets,
+                                        ranges)
+    best, pos = call()                  # the LUTs go over here, once
+    native_b, native_p = split_read_scan_multi(FLANK, batch, valid, qconv,
+                                               targets, ranges)
+    if not (np.array_equal(best[valid], native_b)
+            and np.array_equal(pos[valid], native_p)):
+        raise AssertionError("scan_multi on the card != the native scan")
+    n_calls = 20
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            call()
+        torch.cuda.synchronize()
+    copies = {"HtoD": 0, "DtoH": 0}
+    for e in prof.key_averages():
+        for kind in copies:
+            if "memcpy" in e.key.lower() and kind.lower() in e.key.lower():
+                copies[kind] += e.count
+    counted = dict(device_scan.EXACT_COPIES)
+    # a trace can lose events (it never invents one): no more than one
+    # copy each way a call in the trace, exactly one by the router's
+    # own count
+    if not all(n_calls // 2 <= n <= n_calls for n in copies.values()) \
+            or counted != {"h2d": n_calls + 1, "d2h": n_calls + 1}:
+        raise AssertionError(f"{n_calls} scan_multi calls made {copies} "
+                             f"copies in the trace, {counted} by the "
+                             "router's count (one call more); wanted one "
+                             "each way a call")
+    times = {"router": [], "native": []}
+    for _ in range(n_calls):
+        t0 = time.perf_counter()
+        call()
+        times["router"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        split_read_scan_multi(FLANK, batch, valid, qconv, targets, ranges)
+        times["native"].append(time.perf_counter() - t0)
+    print(f"router: scan_multi on the card, {len(idx)} reads x "
+          f"{len(targets)} targets == native scan (bit-equal); "
+          f"{copies['HtoD']} host-to-device and {copies['DtoH']} "
+          f"device-to-host copies in the profiler's trace of {n_calls} "
+          f"calls, {n_calls} each by the router's count; "
+          f"{statistics.median(times['router']) * 1e3:.4f} ms a call "
+          f"(host clock, median of {n_calls}), native scan of the "
+          f"{len(valid)} valid reads "
+          f"{statistics.median(times['native']) * 1e3:.4f} ms", flush=True)
 
 
 def _records(path):
@@ -603,14 +794,14 @@ def _reset_counts():
     from manta_tpu_torch.align import cuda_jumpscore, cuda_splitscore
     from manta_tpu_torch.align import device_jumpscore as dj
     from manta_tpu_torch.align import device_splitscore as ds
-    from manta_tpu_torch.scoring.device_scan import SCAN_STATS
+    from manta_tpu_torch.scoring.device_scan import EXACT_COPIES, SCAN_STATS
     for launches in (cuda_jumpscore.KERNEL_LAUNCHES,
                      cuda_splitscore.KERNEL_LAUNCHES):
         for k in launches:
             launches[k] = 0
     dj.PLAIN_CALLS["cuda"] = 0
     ds.PLAIN_CALLS["cuda"] = 0
-    for stats in (dj.DISPATCH_STATS, SCAN_STATS):
+    for stats in (dj.DISPATCH_STATS, SCAN_STATS, EXACT_COPIES):
         for k in stats:
             stats[k] = 0.0 if k in ("wall", "first_wall") else 0
 
@@ -619,8 +810,8 @@ def _counts():
     from manta_tpu_torch.align import cuda_jumpscore, cuda_splitscore
     from manta_tpu_torch.align import device_jumpscore as dj
     from manta_tpu_torch.align import device_splitscore as ds
-    from manta_tpu_torch.scoring.device_scan import SCAN_STATS
-    return {"jump": cuda_jumpscore.KERNEL_LAUNCHES["jump_score"],
+    from manta_tpu_torch.scoring.device_scan import EXACT_COPIES, SCAN_STATS
+    return {"copies": dict(EXACT_COPIES), "jump": cuda_jumpscore.KERNEL_LAUNCHES["jump_score"],
             "bounded": cuda_jumpscore.KERNEL_LAUNCHES["jump_score_bounded"],
             "split": cuda_splitscore.KERNEL_LAUNCHES["split_score"],
             "plain_jump": dj.PLAIN_CALLS["cuda"],
@@ -648,6 +839,10 @@ def _check_counts(what, mode, c):
         raise AssertionError(f"{what} ({mode}): {c['split']} split launches "
                              f"for {scan['exact']} exact scans and "
                              f"{scan['fallback']} fallbacks")
+    if set(c["copies"].values()) != {c["split"]}:
+        raise AssertionError(f"{what} ({mode}): {c['split']} split launches "
+                             f"with {c['copies']} copies; wanted one each "
+                             "way a launch")
     if mode == "off" and (c["jump"] or scan["exact"] + scan["mxu"]):
         raise AssertionError(f"{what} (off) used the device")
     if mode == "jump" and scan["exact"] + scan["mxu"]:
@@ -662,12 +857,17 @@ def _check_counts(what, mode, c):
 
 def _describe(c):
     scan = c["scan"]
+    n_scans = scan["exact"] + scan["mxu"] + scan["fallback"]
     return (f"{c['dispatch']['jobs']} contig jobs in {c['dispatch']['calls']}"
             f" dispatches ({c['dispatch']['wall']:.3f} s), {c['jump']} jump "
             f"launches; split scans exact {scan['exact']}, mxu {scan['mxu']},"
             f" fallback {scan['fallback']} ({scan['rows']} rows, "
-            f"{scan['wall']:.3f} s), {c['split']} split launches; 0 "
-            "plain-form calls on CUDA")
+            f"{scan['wall']:.3f} s"
+            + (f", {scan['wall'] / n_scans * 1e3:.4f} ms a scan_multi call"
+               if n_scans else "")
+            + f"), {c['split']} split launches, {c['copies']['h2d']} "
+            f"host-to-device and {c['copies']['d2h']} device-to-host "
+            "copies; 0 plain-form calls on CUDA")
 
 
 def demo_fasta() -> str:
@@ -916,7 +1116,9 @@ def device_timing() -> dict:
         raise AssertionError("a bench of the timing entry point failed")
     names = {rec.get("kernel") for rec in records}
     want = {"matmul_bf16_ref", "jump_score_dp", "jump_score_cuda",
-            "split_scan_exact", "split_scan_cuda", "split_scan_mxu"} | {
+            "split_scan_exact", "split_scan_cuda",
+            "split_scan_cuda_factored", "split_scan_mxu",
+            "scan_router_exact"} | {
         f"jump_score_cuda_bounded_k{k}" for k in BOUNDED_ROUNDS}
     if not want <= names:
         raise AssertionError(f"missing records: {sorted(want - names)}")

@@ -9,6 +9,11 @@ plain forms ``device_jumpscore.batched_jump_score``, ``..._flagged`` and
 ``..._bounded`` on int32 tensors in the JAX layout: query (B, nq), ref1
 (B, nr1), ref2 (B, nr2), lengths (B,).
 
+The exact kernel is a systolic walk (csrc/jump_systolic.cuh): a warp
+owns a strip of query lanes and its threads run one reference column
+apart. ``kernel_layout`` says which form a batch takes: one warp per row,
+or several that hand their boundary values on through device memory.
+
 Each library is built with nvcc at first call (``manta_tpu_torch._build``)
 and launched on the current CUDA stream. These wrappers only ever launch
 the kernels: a CPU tensor or anything else a kernel does not take
@@ -36,9 +41,16 @@ def _lib():
         lib = load("jump_score")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.mt_cuda_jump_score.restype = ci
-        lib.mt_cuda_jump_score.argtypes = [vp] * 7 + [ci] * 10 + [vp]
+        lib.mt_cuda_jump_score.argtypes = (
+            [vp] * 7 + [ci] * 10 + [vp, ctypes.c_longlong, ci, vp])
         lib.mt_cuda_jump_score_max_nq.restype = ci
         lib.mt_cuda_jump_score_max_nq.argtypes = []
+        lib.mt_cuda_jump_score_auto_lanes.restype = ci
+        lib.mt_cuda_jump_score_auto_lanes.argtypes = [ci, ci]
+        lib.mt_cuda_jump_score_strips.restype = ci
+        lib.mt_cuda_jump_score_strips.argtypes = [ci, ci]
+        lib.mt_cuda_jump_score_scratch_bytes.restype = ctypes.c_longlong
+        lib.mt_cuda_jump_score_scratch_bytes.argtypes = [ci] * 5
         _LIB = lib
     return _LIB
 
@@ -61,6 +73,37 @@ def _bounded_lib():
 def max_query_width() -> int:
     """Widest padded query (nq) the kernel takes."""
     return int(_lib().mt_cuda_jump_score_max_nq())
+
+
+LANE_CHOICES = (3, 5, 9, 17)
+
+
+def kernel_layout(B: int, nq: int, lanes: int = 0) -> tuple[int, int]:
+    """(lanes per thread, warps per row) the exact kernel takes for a
+    batch of B rows of padded query width nq: which form a batch runs
+    in. A row is one warp where 32 x lanes covers its nq + 1 lanes
+    (shuffles only); else several warps that hand their boundary values
+    on through device memory. ``lanes`` = 0 is the kernel's own choice:
+    the fewest lanes for which the batch's warps have a scheduler
+    each."""
+    lib = _lib()
+    if lanes == 0:
+        lanes = int(lib.mt_cuda_jump_score_auto_lanes(int(B), int(nq)))
+    return lanes, int(lib.mt_cuda_jump_score_strips(int(nq), lanes))
+
+
+# scratch of the multi-warp launches whose error word has not been read
+_UNCHECKED: list[torch.Tensor] = []
+
+
+def raise_on_kernel_error() -> None:
+    """Read the error word of every multi-warp launch made since the
+    last call (this waits for them) and raise if a warp gave up waiting
+    for the warp below it: the scores of that launch are not valid."""
+    pending, _UNCHECKED[:] = list(_UNCHECKED), []
+    if pending and any(int(t[1]) != 0 for t in pending):
+        raise RuntimeError("CUDA jump kernel: a warp gave up waiting for "
+                           "its lower neighbour's boundary values")
 
 
 def _check(name, t, dim, device, rows=None):
@@ -96,9 +139,15 @@ def _check_batch(query, query_len, ref1, ref1_len, ref2, ref2_len):
 
 def jump_score_cuda(query, query_len, ref1, ref1_len, ref2, ref2_len,
                     match: int, mismatch: int, open_: int, extend: int,
-                    off_edge: int, jump_score: int) -> torch.Tensor:
+                    off_edge: int, jump_score: int, *,
+                    lanes: int = 0) -> torch.Tensor:
     """Best jump-alignment score per row, int32 (B,), on the query's
-    device. Padded widths are the tensors' own widths."""
+    device. Padded widths are the tensors' own widths. ``extend`` must
+    not be positive. ``lanes`` (one of LANE_CHOICES) overrides the
+    kernel's own choice of layout (``kernel_layout``), for the tests and
+    the timing tool's sweep that the choice rests on; it changes the
+    time, never the result. A launch of several warps per row leaves an
+    error word that ``raise_on_kernel_error`` reads."""
     _check_batch(query, query_len, ref1, ref1_len, ref2, ref2_len)
     dev = query.device
     B, nq = query.shape
@@ -106,20 +155,41 @@ def jump_score_cuda(query, query_len, ref1, ref1_len, ref2, ref2_len,
     if nq > lib.mt_cuda_jump_score_max_nq():
         raise ValueError(f"query width {nq} exceeds the CUDA jump kernel's "
                          f"limit {lib.mt_cuda_jump_score_max_nq()}")
+    lanes = int(lanes)
+    if int(extend) > 0:
+        raise ValueError(f"extend must not be positive, got {extend}")
+    if lanes not in (0, *LANE_CHOICES):
+        raise ValueError(f"lanes must be 0 or one of {LANE_CHOICES}, got "
+                         f"{lanes}")
+    if lanes and lib.mt_cuda_jump_score_strips(nq, lanes) > 64:
+        raise ValueError(f"query width {nq} takes more than 64 warps at "
+                         f"{lanes} lanes per thread")
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return out
+    nr1, nr2 = ref1.shape[1], ref2.shape[1]
+    n_scratch = int(lib.mt_cuda_jump_score_scratch_bytes(B, nq, nr1, nr2,
+                                                         lanes))
+    # int64 elements: the kernel wants the scratch 8-aligned
+    scratch = (torch.empty((n_scratch + 7) // 8, dtype=torch.int64,
+                           device=dev) if n_scratch else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mt_cuda_jump_score(
             query.data_ptr(), query_len.data_ptr(), ref1.data_ptr(),
             ref1_len.data_ptr(), ref2.data_ptr(), ref2_len.data_ptr(),
-            out.data_ptr(), B, nq, ref1.shape[1], ref2.shape[1],
+            out.data_ptr(), B, nq, nr1, nr2,
             int(match), int(mismatch), int(open_), int(extend),
-            int(off_edge), int(jump_score), stream)
+            int(off_edge), int(jump_score),
+            scratch.data_ptr() if n_scratch else None, n_scratch, lanes,
+            stream)
     if err != 0:
         raise RuntimeError(f"CUDA jump kernel launch failed: cudaError {err}")
     KERNEL_LAUNCHES["jump_score"] += 1
+    if n_scratch:
+        _UNCHECKED.append(scratch.view(torch.int32))
+        if len(_UNCHECKED) > 16:      # bound what an unchecked run holds
+            raise_on_kernel_error()
     return out
 
 

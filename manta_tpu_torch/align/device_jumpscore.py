@@ -18,6 +18,9 @@ Two forms with one contract, on int32 tensors in the JAX layout
   (``torch.cummax``). It is the CPU path and the reference the CUDA
   kernel is held against.
 - ``cuda_jumpscore.jump_score_cuda``, the hand-written Hopper kernel.
+  It cuts the query lanes into strips that hand two boundary values a
+  column upwards; ``batched_jump_score_strips`` is the plain model of
+  that cut, for the tests.
 
 The bounded-insert-chain variant (manta_tpu's
 ``pallas_jump_score_flagged`` / ``pallas_jump_score_bounded``) has the
@@ -41,7 +44,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cuda_jumpscore import KERNEL_LAUNCHES, jump_score_cuda, rerun_flagged
+from .cuda_jumpscore import (
+    KERNEL_LAUNCHES, jump_score_cuda, raise_on_kernel_error, rerun_flagged,
+)
 
 BAD = -10000
 NEG = -(1 << 28)
@@ -146,9 +151,10 @@ def _walk(query, query_len, ref, ref_len, n_cols, state, best, scores,
 
 def _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
              match, mismatch, open_, extend, off_edge, jump_score,
-             nq_pad, nr1_pad, nr2_pad, prefix_rounds):
+             nq_pad, nr1_pad, nr2_pad, prefix_rounds, strip=0):
     """Both phases of the jump DP; returns (best int32 (B,), flag bool
-    (B,) or None for the exact chain)."""
+    (B,) or None for the exact chain). ``strip`` > 0 walks the exact
+    chain in strips of that many lanes (``_walk_strips``)."""
     if query.is_cuda:
         PLAIN_CALLS["cuda"] += 1
     B = query.shape[0]
@@ -177,16 +183,23 @@ def _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
     best = torch.full((B,), NEG, dtype=torch.int32, device=dev)
     flag = (torch.zeros(B, dtype=torch.bool, device=dev)
             if prefix_rounds > 0 else None)
-    (cm, cd, ci, cj), best, flag = _walk(
-        query, query_len, ref1, ref1_len, n_cols(ref1_len, nr1_pad),
-        (cm, cd, ci, cj), best, scores, jump_score, True,
-        prefix_rounds, flag)
+
+    def walk(ref, ref_len, n, state, best, is_ref1, flag):
+        if strip:
+            return (*_walk_strips(query, query_len, ref, ref_len, n, state,
+                                  best, scores, jump_score, is_ref1, strip),
+                    flag)
+        return _walk(query, query_len, ref, ref_len, n, state, best, scores,
+                     jump_score, is_ref1, prefix_rounds, flag)
+
+    (cm, cd, ci, cj), best, flag = walk(
+        ref1, ref1_len, n_cols(ref1_len, nr1_pad), (cm, cd, ci, cj), best,
+        True, flag)
     best = off_edge_best(cm, best)
     cm, cd, ci, _ = fresh()
-    (cm, cd, ci, cj), best, flag = _walk(
-        query, query_len, ref2, ref2_len, n_cols(ref2_len, nr2_pad),
-        (cm, cd, ci, cj), best, scores, jump_score, False,
-        prefix_rounds, flag)
+    (cm, cd, ci, cj), best, flag = walk(
+        ref2, ref2_len, n_cols(ref2_len, nr2_pad), (cm, cd, ci, cj), best,
+        False, flag)
     return off_edge_best(cm, best), flag
 
 
@@ -198,6 +211,88 @@ def batched_jump_score(query, query_len, ref1, ref1_len, ref2, ref2_len,
     return _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
                     match, mismatch, open_, extend, off_edge, jump_score,
                     nq_pad, nr1_pad, nr2_pad, 0)[0]
+
+
+def _walk_strips(query, query_len, ref, ref_len, n_cols, state, best,
+                 scores, jump_score, is_ref1, strip):
+    """One phase of the jump DP in the strip form of the CUDA kernel
+    (csrc/jump_systolic.cuh): the query lanes are cut into strips of
+    ``strip`` lanes, and a strip takes from the strip below only two
+    values per column: the diagonal maximum of that strip's last lane at
+    the previous column, and the running maximum of the insert-chain
+    sources up to and including that strip, taken before the
+    ``extend*(q+1)`` offset and the BAD floor. A row's strips that lie
+    wholly above its query length are not walked."""
+    match, mismatch, open_, extend = scores
+    pm, pd, pi, pj = (x.clone() for x in state)
+    B, nq = query.shape
+    dev = query.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    qn = query_len[:, None]
+    # lane q holds query[q-1]; 0 at lane 0 never equals a code
+    qsh = torch.cat([torch.zeros((B, 1), **i32), query], dim=1)
+    match_t = torch.tensor(match, **i32)
+    mismatch_t = torch.tensor(mismatch, **i32)
+    bounds = [(lo, min(lo + strip, nq + 1))
+              for lo in range(0, nq + 1, strip)]
+    for c in range(n_cols):
+        rc = ref[:, c:c + 1]
+        col_act = (c < ref_len)[:, None]
+        dprev = torch.full((B,), BAD, **i32)
+        excl = torch.full((B,), NEG, **i32)
+        for lo, hi in bounds:
+            q = torch.arange(lo, hi, **i32)[None, :]
+            om, od, oi, oj = (x[:, lo:hi] for x in (pm, pd, pi, pj))
+            dmax = torch.maximum(torch.maximum(om, od), oi)
+            if not is_ref1:
+                dmax = torch.maximum(dmax, oj)
+            d = torch.cat([dprev[:, None], dmax[:, :-1]], dim=1)
+            sub = torch.where(qsh[:, lo:hi] == rc, match_t, mismatch_t)
+            vm = torch.where(q == 0, 0, d + sub)
+            vd = torch.maximum(torch.maximum(om + open_, od), oi) + extend
+            vd = torch.where(q <= (1 if is_ref1 else 0), BAD, vd)
+            # the source lane q opens for lane q + 1
+            if is_ref1:
+                f = torch.where(q == 0, BAD, vm + open_)
+            else:
+                f = torch.maximum(vm + open_, oj)
+            g = torch.where(f <= BAD, NEG, f - extend * (q + 1))
+            run = torch.cummax(
+                torch.cat([excl[:, None], g[:, :-1]], dim=1), dim=1).values
+            vi = torch.clamp_min(run + extend * (q + 1), BAD)
+            if is_ref1:
+                vj = torch.where(
+                    q == 0, BAD,
+                    torch.maximum(torch.maximum(vm + jump_score,
+                                                vi + jump_score), oj))
+            else:
+                vj = oj
+            act = col_act & (lo <= qn)
+            dprev = dmax[:, -1]
+            excl = torch.maximum(run[:, -1], g[:, -1])
+            pm[:, lo:hi] = torch.where(act, vm, om)
+            pd[:, lo:hi] = torch.where(act, vd, od)
+            pi[:, lo:hi] = torch.where(act, vi, oi)
+            pj[:, lo:hi] = torch.where(act, vj, oj)
+        end_val = torch.gather(pm, 1, qn.long())[:, 0]
+        best = torch.where(col_act[:, 0], torch.maximum(best, end_val), best)
+    return (pm, pd, pi, pj), best
+
+
+def batched_jump_score_strips(query, query_len, ref1, ref1_len, ref2,
+                              ref2_len, match, mismatch, open_, extend,
+                              off_edge, jump_score, nq_pad: int,
+                              nr1_pad: int, nr2_pad: int, strip: int):
+    """``batched_jump_score`` in the strip decomposition of the CUDA
+    kernel, ``strip`` query lanes to a strip: int32 (B,), equal to
+    ``batched_jump_score`` for every strip width >= 1. The plain model
+    of the kernel's boundary hand-over; the tests run it, nothing
+    else."""
+    if strip < 1:
+        raise ValueError(f"strip must be >= 1, got {strip}")
+    return _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
+                    match, mismatch, open_, extend, off_edge, jump_score,
+                    nq_pad, nr1_pad, nr2_pad, 0, strip=int(strip))[0]
 
 
 def batched_jump_score_flagged(query, query_len, ref1, ref1_len, ref2,
@@ -269,7 +364,9 @@ def jump_scores(queries, ref1s, ref2s, scores, jump_score, device):
     r1, r1l = _pad_to(ref1s, B, nr1, 2)
     r2, r2l = _pad_to(ref2s, B, nr2, 2)
     t = from_reference_inputs(q, ql, r1, r1l, r2, r2l, device)
-    return _score(*t, scores, jump_score).cpu().numpy()
+    res = _score(*t, scores, jump_score).cpu().numpy()
+    raise_on_kernel_error()
+    return res
 
 
 def _bucket(n: int, tiers=(128, 256, 512, 1024, 2048, 4096)) -> int:
@@ -345,6 +442,7 @@ def make_bucketed_scorer(scores, jump_score: int, device):
         Bp = _bucket(B, tiers=(8, 16, 32, 64, 128, 256))
         t = from_reference_inputs(*pad_jobs(jobs, Bp), device)
         res = _score(*t, scores, jump_score).cpu().numpy()[:B]
+        raise_on_kernel_error()
         dt = _time.perf_counter() - _t0
         s = DISPATCH_STATS
         if s["calls"] == 0:

@@ -25,8 +25,18 @@ Two forms with one contract:
 - ``cuda_splitscore.split_score_cuda``, the hand-written Hopper kernel
   (replaces the Pallas kernel manta_tpu/align/pallas_splitscore.py).
 
-``split_score`` dispatches on the tensors' device: the kernel on CUDA,
-the plain form on the CPU, never one for the other.
+Beside the JAX layout there is the *factored* one, for the production
+case of n reads scanned against the same t junction targets: reads,
+quals (n, L) and read_len (n,) once per read, targets (t, T), bp_beg,
+bp_end and target_len (t,) once per target, results (n, t), row r,
+column k being read r against target k. ``batched_split_score_factored``
+is its plain form, ``cuda_splitscore.split_score_factored_cuda`` the
+same kernel; ``factored_from_replicated`` turns the read-major
+replicated arrays of the JAX layout into it.
+
+``split_score`` and ``split_score_factored`` dispatch on the tensors'
+device: the kernel on CUDA, the plain form on the CPU, never one for the
+other.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import math
 import numpy as np
 import torch
 
-from .cuda_splitscore import split_score_cuda
+from .cuda_splitscore import split_score_cuda, split_score_factored_cuda
 
 MAX_QSCORE = 70
 PAD_BASE = 0xFF
@@ -110,6 +120,75 @@ def batched_split_score(reads, quals, targets, bp_beg, bp_end, read_len,
     best_k = torch.argmax(lnl, dim=1)
     best = torch.gather(lnl, 1, best_k[:, None])[:, 0]
     return best, scan_start + best_k.to(torch.int32)
+
+
+def factored_from_replicated(reads, quals, targets, bp_beg, bp_end,
+                             read_len, target_len, t: int, device):
+    """The factored tensors (reads, quals, read_len, targets, bp_beg,
+    bp_end, target_len) on ``device`` of a read-major replicated batch
+    in the JAX layout: numpy arrays of B = n * t rows, row r * t + k
+    being read r against target k. Raises if the rows are not such a
+    replication."""
+    arrays = [np.ascontiguousarray(a) for a in (
+        reads, quals, targets, bp_beg, bp_end, read_len, target_len)]
+    B = arrays[0].shape[0]
+    if t < 1 or B % t:
+        raise ValueError(f"{B} rows are not n reads x {t} targets")
+    per_read = [arrays[i][::t] for i in (0, 1, 5)]
+    per_target = [arrays[i][:t] for i in (2, 3, 4, 6)]
+    for a, f in zip((arrays[i] for i in (0, 1, 5)), per_read):
+        if not np.array_equal(a, np.repeat(f, t, axis=0)):
+            raise ValueError("rows of one read differ")
+    for a, f in zip((arrays[i] for i in (2, 3, 4, 6)), per_target):
+        if not np.array_equal(a, np.concatenate([f] * (B // t))):
+            raise ValueError("the targets do not repeat every t rows")
+    r, q, rl = per_read
+    tg, beg, end, tl = per_target
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (r, q, rl, tg, beg, end, tl))
+
+
+def batched_split_score_factored(reads, quals, read_len, targets, bp_beg,
+                                 bp_end, target_len, flank_score_size,
+                                 ln_match_lut, ln_mism_lut, n_scan: int):
+    """Every read against every target, each stored once: the plain form
+    of the factored layout, target by target through
+    ``batched_split_score`` (the same sums in the same order, so equal to
+    it on the replicated rows bit for bit).
+
+    Returns (best_lnlhood, best_pos): (n, t) float32 / int32."""
+    n = reads.shape[0]
+    t = targets.shape[0]
+    dev = reads.device
+    best = torch.empty((n, t), dtype=torch.float32, device=dev)
+    pos = torch.empty((n, t), dtype=torch.int32, device=dev)
+    for k in range(t):
+        best[:, k], pos[:, k] = batched_split_score(
+            reads, quals, targets[k:k + 1].expand(n, -1),
+            bp_beg[k:k + 1].expand(n), bp_end[k:k + 1].expand(n), read_len,
+            target_len[k:k + 1].expand(n), flank_score_size, ln_match_lut,
+            ln_mism_lut, n_scan)
+    return best, pos
+
+
+def split_score_factored(reads, quals, read_len, targets, bp_beg, bp_end,
+                         target_len, flank_score_size, ln_match_lut,
+                         ln_mism_lut, n_scan: int, out=None):
+    """The factored scan, dispatched on the tensors' device: the CUDA
+    kernel, or on the CPU the plain form. Nothing else. ``out``: see
+    ``split_score_factored_cuda``; the plain form fills it too."""
+    args = (reads, quals, read_len, targets, bp_beg, bp_end, target_len,
+            flank_score_size, ln_match_lut, ln_mism_lut, n_scan)
+    if reads.device.type == "cuda":
+        return split_score_factored_cuda(*args, out=out)
+    if reads.device.type == "cpu":
+        best, pos = batched_split_score_factored(*args)
+        if out is not None:
+            out[0].view(torch.float32).copy_(best)
+            out[1].copy_(pos)
+            best, pos = out[0].view(torch.float32), out[1]
+        return best, pos
+    raise ValueError(f"no split-scan path for device {reads.device}")
 
 
 def split_score(reads, quals, targets, bp_beg, bp_end, read_len,

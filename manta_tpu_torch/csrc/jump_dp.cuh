@@ -1,6 +1,9 @@
 // The two-reference jump Smith-Waterman-Gotoh recurrence (int32, score
-// only) for Hopper (sm_90a), shared by the exact kernel (jump_score.cu)
-// and the bounded-insert-chain kernel (jump_score_bounded.cu).
+// only) for Hopper (sm_90a) as a block-barrier walk: the body of the
+// bounded-insert-chain kernel (jump_score_bounded.cu), and of the exact
+// chain that kernel runs where its window covers every lane. The exact
+// kernel proper (jump_score.cu, jump_systolic.cuh) shares the cell's
+// pieces below (scores, sentinels, insert_source) and walks otherwise.
 //
 // Four int32 state rows (M, D, I, J) over the query lanes q = 0..nq walk
 // the ref1 columns, then the ref2 columns. One thread block per batch
@@ -307,21 +310,6 @@ cudaError_t launch(const Batch& a, int* flag_out, int window,
         a.query, a.qlen, a.ref1, a.r1len, a.ref2, a.r2len, a.out, flag_out,
         a.nq, a.nr1, a.nr2, window, s);
     return cudaGetLastError();
-}
-
-// Launch the exact kernel with the fewest lanes per thread that fit the
-// query into one block.
-inline cudaError_t launch_exact(const Batch& a, const Scores& s,
-                                cudaStream_t st) {
-    const int need = (a.nq + 1 + kMaxThreads - 1) / kMaxThreads;
-    if (need <= 1) return launch<1, false>(a, nullptr, 0, s, st);
-    if (need <= 2) return launch<2, false>(a, nullptr, 0, s, st);
-    if (need <= 3) return launch<3, false>(a, nullptr, 0, s, st);
-    if (need <= 5) return launch<5, false>(a, nullptr, 0, s, st);
-    if (need <= 9) return launch<9, false>(a, nullptr, 0, s, st);
-    if (need <= 17) return launch<17, false>(a, nullptr, 0, s, st);
-    if (need <= kMaxLanes) return launch<kMaxLanes, false>(a, nullptr, 0, s, st);
-    return cudaErrorInvalidValue;
 }
 
 inline Batch make_batch(const void* query, const void* qlen,

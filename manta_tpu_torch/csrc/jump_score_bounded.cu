@@ -40,6 +40,21 @@ namespace {
 // must fit the 227 KB of shared memory a block can have
 constexpr int kMaxBoundedLanes = 17;
 
+// Launch the block-barrier kernel on the exact chain with the fewest
+// lanes per thread that fit the query into one block.
+inline cudaError_t launch_exact(const Batch& a, const Scores& s,
+                                cudaStream_t st) {
+    const int need = (a.nq + 1 + kMaxThreads - 1) / kMaxThreads;
+    if (need <= 1) return launch<1, false>(a, nullptr, 0, s, st);
+    if (need <= 2) return launch<2, false>(a, nullptr, 0, s, st);
+    if (need <= 3) return launch<3, false>(a, nullptr, 0, s, st);
+    if (need <= 5) return launch<5, false>(a, nullptr, 0, s, st);
+    if (need <= 9) return launch<9, false>(a, nullptr, 0, s, st);
+    if (need <= 17) return launch<17, false>(a, nullptr, 0, s, st);
+    if (need <= kMaxLanes) return launch<kMaxLanes, false>(a, nullptr, 0, s, st);
+    return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {

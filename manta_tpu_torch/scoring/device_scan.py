@@ -6,10 +6,13 @@ device, with the same contract as evidence.split_read_scan_multi.
 
 Two formulations, as in the JAX package:
 - exact (default): on a CUDA device the hand-written kernel
-  (align/cuda_splitscore.split_score_cuda), on the CPU the plain form
-  (align/device_splitscore.batched_split_score); both add the terms in
-  the native host scan's order, so device and host give bit-identical
-  winners and routing is a pure performance choice.
+  (align/cuda_splitscore.split_score_factored_cuda), on the CPU the
+  plain form (align/device_splitscore.batched_split_score_factored);
+  both add the terms in the native host scan's order, so device and host
+  give bit-identical winners and routing is a pure performance choice.
+  Reads and targets are staged once each (no replication across the
+  read x target pairs) in one host buffer, pinned for a CUDA device:
+  a call makes one host-to-device copy and one device-to-host copy.
 - mxu: the matmul/Toeplitz factorization
   (align/device_splitscore_mxu.junction_split_score) that shares each
   junction target across all its reads; ~1e-6 relative score error.
@@ -29,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from ..align.device_splitscore import split_score
+from ..align.device_splitscore import split_score_factored
 from ..align.device_splitscore_mxu import junction_split_score
 
 _TIERS = (256, 512, 1024, 2048, 4096, 8192)
@@ -40,6 +43,8 @@ _ACGTN_PAD = frozenset((65, 67, 71, 84, 78, 0xFF))  # A C G T N pad
 # time; reported once per process at exit as a "[manta-tpu-torch]
 # split-scan ..." stderr line
 SCAN_STATS = {"exact": 0, "mxu": 0, "fallback": 0, "rows": 0, "wall": 0.0}
+# copies the exact route asked for on a CUDA device: one each way a call
+EXACT_COPIES = {"h2d": 0, "d2h": 0}
 _REPORT_REGISTERED = False
 
 
@@ -76,29 +81,49 @@ def _bucket(n: int) -> int:
     return ((n + 8191) // 8192) * 8192
 
 
-def stage_reads(batch, read_idx):
+def _gather_rows(flat, off, idx, out, fill):
+    """out[r] = flat[off[idx[r]]:off[idx[r] + 1]], then ``fill``, for
+    every r, without a Python loop: one take through an (n, longest)
+    index plane. Returns the lengths (n,) int64."""
+    start = off[idx].astype(np.int64)
+    lens = off[idx + 1].astype(np.int64) - start
+    longest = int(lens.max()) if len(lens) else 0
+    col = np.arange(longest, dtype=np.int64)
+    src = np.minimum(start[:, None] + col, len(flat) - 1)
+    out[:, :longest] = np.where(col < lens[:, None], flat[src], fill)
+    out[:, longest:] = fill
+    return lens
+
+
+def read_tier(batch, read_idx) -> int:
+    """The read tier Lp of the selected batch reads."""
+    return _bucket(int((batch.seq_off[read_idx + 1]
+                        - batch.seq_off[read_idx]).max()))
+
+
+def stage_reads(batch, read_idx, out=None):
     """The selected batch reads as (n, Lp) uint8 rows, 0xFF padded, with
-    their quals (n, Lp) and lengths (n,) int32; Lp is the read tier."""
+    their quals (n, Lp) and lengths (n,) int32; Lp is the read tier.
+    ``out``: None, or the (reads, quals) arrays of that shape to fill."""
+    read_idx = np.asarray(read_idx, np.int64)
     n = len(read_idx)
-    read_lens = (batch.seq_off[read_idx + 1]
-                 - batch.seq_off[read_idx]).astype(np.int32)
-    Lp = _bucket(int(read_lens.max()))
-    reads = np.full((n, Lp), 0xFF, np.uint8)
-    quals = np.zeros((n, Lp), np.uint8)
-    for r in range(n):
-        i = int(read_idx[r])
-        s0, s1 = int(batch.seq_off[i]), int(batch.seq_off[i + 1])
-        q0, q1 = int(batch.qual_off[i]), int(batch.qual_off[i + 1])
-        reads[r, :s1 - s0] = batch.seq[s0:s1]
-        quals[r, :q1 - q0] = batch.qual[q0:q1]
-    return reads, quals, read_lens
+    if out is None:
+        Lp = read_tier(batch, read_idx)
+        out = np.empty((n, Lp), np.uint8), np.empty((n, Lp), np.uint8)
+    reads, quals = out
+    read_lens = _gather_rows(batch.seq, batch.seq_off, read_idx, reads,
+                             np.uint8(0xFF))
+    _gather_rows(batch.qual, batch.qual_off, read_idx, quals, np.uint8(0))
+    return reads, quals, read_lens.astype(np.int32)
 
 
 def stage_exact(reads, quals, read_lens, targets, bp_ranges, Tp):
-    """The exact scan's rows, read-major: each read row replicated
-    across its t junction targets, targets N-padded to Tp. Returns the
-    numpy arrays (reads, quals, targets, bp_beg, bp_end, read_len,
-    target_len) of the split scan's layout, B = n * t rows."""
+    """The scan's rows in the replicated (JAX) layout, read-major: each
+    read row replicated across its t junction targets, targets N-padded
+    to Tp. Returns the numpy arrays (reads, quals, targets, bp_beg,
+    bp_end, read_len, target_len), B = n * t rows. The router itself
+    stages the factored layout (``ExactStaging``); this is the layout
+    the kernel is held against the JAX package in."""
     t = len(targets)
     B = len(reads) * t
     freads = np.repeat(reads, t, axis=0)
@@ -115,6 +140,59 @@ def stage_exact(reads, quals, read_lens, targets, bp_ranges, Tp):
     return freads, fquals, tgts, bp_beg, bp_end, np.repeat(read_lens, t), tl
 
 
+class ExactStaging:
+    """One host buffer that holds every input of an exact scan call in
+    the factored layout, reads, quals (n, Lp), targets (t, Tp), then the
+    int32 vectors read_len (n,), bp_beg, bp_end, target_len (t,), so
+    that one copy takes them to the device. Pinned when the device is
+    CUDA; grown when a call needs more and kept between calls (a call
+    ends with the results on the host, so the buffer is free again)."""
+
+    def __init__(self, device):
+        self.device = device
+        self._buf = None
+
+    def _host(self, n_bytes: int):
+        if self._buf is None or self._buf.numel() < n_bytes:
+            self._buf = torch.empty(
+                max(n_bytes, 1 << 16), dtype=torch.uint8,
+                pin_memory=self.device.type == "cuda")
+        return self._buf[:n_bytes]
+
+    def stage(self, batch, read_idx, targets, bp_ranges, Tp):
+        """Fill the buffer and copy it; returns the device tensors
+        (reads, quals, read_len, targets, bp_beg, bp_end,
+        target_len)."""
+        n, t = len(read_idx), len(targets)
+        Lp = read_tier(batch, read_idx)
+        sizes = (n * Lp, n * Lp, t * Tp)            # multiples of 256
+        n_ints = n + 3 * t
+        host = self._host(sum(sizes) + 4 * n_ints)
+        flat = host.numpy()
+        o1, o2, o3 = np.cumsum(sizes)
+        reads = flat[:o1].reshape(n, Lp)
+        quals = flat[o1:o2].reshape(n, Lp)
+        tgts = flat[o2:o3].reshape(t, Tp)
+        ints = flat[o3:].view(np.int32)
+        _r, _q, read_lens = stage_reads(batch, read_idx, (reads, quals))
+        ints[:n] = read_lens
+        tgts[...] = ord("N")
+        for k, tg in enumerate(targets):
+            tgts[k, :len(tg)] = tg
+            ints[n + k] = bp_ranges[k][0]
+            ints[n + t + k] = bp_ranges[k][1]
+            ints[n + 2 * t + k] = len(tg)
+        if self.device.type == "cuda":
+            dev = host.to(self.device, non_blocking=True)
+            EXACT_COPIES["h2d"] += 1
+        else:
+            dev = host
+        d_ints = dev[o3:].view(torch.int32)
+        return (dev[:o1].view(n, Lp), dev[o1:o2].view(n, Lp), d_ints[:n],
+                dev[o2:o3].view(t, Tp), d_ints[n:n + t],
+                d_ints[n + t:n + 2 * t], d_ints[n + 2 * t:])
+
+
 class DeviceScanContext:
     """Holds the LUT tensors per qscore converter and dispatches bucketed
     batches to the split scan on ``device``."""
@@ -125,6 +203,7 @@ class DeviceScanContext:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"no split-scan path for device {self.device}")
         self._luts = {}
+        self._staging = ExactStaging(self.device)
         _register_scan_report()
 
     def _luts_for(self, qconv):
@@ -149,18 +228,19 @@ class DeviceScanContext:
                    targets, bp_ranges):
         """Same contract as evidence.split_read_scan_multi."""
         t0 = time.perf_counter()
-        reads, quals, read_lens = stage_reads(batch, read_idx)
+        read_idx = np.asarray(read_idx, np.int64)
         Tp = _bucket(max(len(tg) for tg in targets) + 1)
-        if self._mxu and self._mxu_eligible(reads, targets):
+        staged = stage_reads(batch, read_idx) if self._mxu else None
+        if self._mxu and self._mxu_eligible(staged[0], targets):
             SCAN_STATS["mxu"] += 1
-            out = self._scan_mxu(flank_score_size, reads, quals, read_lens,
-                                 qconv, targets, bp_ranges, Tp)
+            out = self._scan_mxu(flank_score_size, *staged, qconv, targets,
+                                 bp_ranges, Tp)
         else:
             # IUPAC codes the one-hot factorization can't encode fall
             # back to the exact scan, which takes any byte
             SCAN_STATS["fallback" if self._mxu else "exact"] += 1
-            out = self._scan_exact(flank_score_size, reads, quals,
-                                   read_lens, qconv, targets, bp_ranges, Tp)
+            out = self._scan_exact(flank_score_size, batch, read_idx, qconv,
+                                   targets, bp_ranges, Tp)
         SCAN_STATS["rows"] += len(read_idx) * len(targets)
         SCAN_STATS["wall"] += time.perf_counter() - t0
         return out
@@ -172,16 +252,19 @@ class DeviceScanContext:
             codes.update(np.unique(tg).tolist())
         return codes <= _ACGTN_PAD
 
-    def _scan_exact(self, flank_score_size, reads, quals, read_lens,
-                    qconv, targets, bp_ranges, Tp):
-        n, t = len(reads), len(targets)
+    def _scan_exact(self, flank_score_size, batch, read_idx, qconv,
+                    targets, bp_ranges, Tp):
+        n, t = len(read_idx), len(targets)
         lut_m, lut_x = self._luts_for(qconv)
-        best, pos = split_score(
-            *self._put(*stage_exact(reads, quals, read_lens, targets,
-                                    bp_ranges, Tp)),
-            flank_score_size, lut_m, lut_x, n_scan=Tp)
-        return (best.cpu().numpy().reshape(n, t).astype(np.float32),
-                pos.cpu().numpy().reshape(n, t).astype(np.int32))
+        staged = self._staging.stage(batch, read_idx, targets, bp_ranges, Tp)
+        # scores' bits and positions in one tensor: one copy back
+        out = torch.empty((2, n, t), dtype=torch.int32, device=self.device)
+        split_score_factored(*staged, flank_score_size, lut_m, lut_x,
+                             n_scan=Tp, out=out)
+        if self.device.type == "cuda":
+            EXACT_COPIES["d2h"] += 1
+        host = out.cpu().numpy()
+        return host[0].view(np.float32), host[1]
 
     def _scan_mxu(self, flank_score_size, reads, quals, read_lens,
                   qconv, targets, bp_ranges, Tp):

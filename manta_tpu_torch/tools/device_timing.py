@@ -13,9 +13,21 @@ Counterpart of benchmarks/device_timing.py, one bench per entry of its
   jump_cuda          the CUDA jump kernel (exact insert chain), same shape
   jump_cuda_bounded  the CUDA bounded-chain kernel at prefix_rounds 3
                      and 5, same shape; ``n_flagged`` rows would rerun
+  jump_layouts       the CUDA jump kernel at the scorer's buckets, full
+                     rows, at every choice of lanes per thread, beside
+                     the block-barrier kernel it replaced
+                     (reached through the bounded entry with a window
+                     over every lane); not part of ``all``
   split_exact        the plain PyTorch split scan     B=512 T=500 L=150
-  split_cuda         the CUDA split-scan kernel, same shape
+  split_cuda         the CUDA split-scan kernel, same shape, a row per
+                     (read, target) pair
+  split_cuda_factored  the same kernel on 256 reads x 2 targets, each
+                     stored once (the router's layout)
   split_mxu          the matmul split scan            G=8 R=64 T=500 L=150
+  scan_router        a whole ``DeviceScanContext.scan_multi`` call (staging,
+                     copies, kernel, results back on the host) on 47 reads
+                     x 2 junction targets, a typical workflow call, on the
+                     host clock, beside the native host scan of the same
 
 Each bench prints one JSON line (and appends it to ``--json``): the
 reference's record (``kernel``, ``shape``, ``sec_per_iter`` and a rate),
@@ -247,7 +259,7 @@ def bench_jump_cuda(ctx):
     from ..align.cuda_jumpscore import jump_score_cuda
     t, shape, cells = _jump_inputs(ctx)
     times = ctx.timer(lambda: jump_score_cuda(*t, *JUMP_SCORES, JUMP),
-                      "jump_score_kernel")
+                      "jump_systolic_kernel")
     _record(ctx, "jump_score_cuda", shape, times,
             **_jump_rates(ctx, cells, times["sec_per_iter"]))
 
@@ -274,6 +286,75 @@ def bench_jump_cuda_bounded(ctx):
                 n_flagged=n_flagged,
                 rerun_event_sec_per_iter=rerun["sec_per_iter"],
                 **_jump_rates(ctx, cells, times["sec_per_iter"]))
+
+
+# (B, nq, nr): the bucket of the WGS-shaped workflow run, the bench
+# bucket, a wide batch of short contigs, the last tier and the first
+# beyond it
+LAYOUT_BUCKETS = ((8, 256, 1024), (64, 512, 1024), (256, 128, 256),
+                  (8, 4096, 4096), (8, 8192, 8192))
+
+
+def _event_ms(fn, calls: int, repeats: int = 3) -> float:
+    """Least CUDA-event time of one call over ``repeats`` loops of
+    ``calls`` calls, in ms, after a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b) / calls)
+    return best
+
+
+def bench_jump_layouts(ctx):
+    """Every layout of the CUDA jump kernel at the scorer's buckets, on
+    rows of full length (the slowest a bucket can be), each checked
+    against the kernel's own choice; the block-barrier kernel beside
+    them. One record per bucket: ``ms`` by lanes per thread (0: the
+    kernel's choice) with the warps a row takes at it."""
+    import torch
+    from ..align import cuda_jumpscore as cj
+    from ..align.device_jumpscore import from_reference_inputs
+    bases = np.frombuffer(b"ACGT", np.uint8).astype(np.int32)
+    for B, nq, nr in LAYOUT_BUCKETS:
+        q = bases[ctx.rng.integers(0, 4, (B, nq))]
+        r1 = bases[ctx.rng.integers(0, 4, (B, nr))]
+        r2 = bases[ctx.rng.integers(0, 4, (B, nr))]
+        ql = np.full(B, nq, np.int32)
+        rl = np.full(B, nr, np.int32)
+        t = from_reference_inputs(q, ql, r1, rl, r2, rl, ctx.device)
+        calls = 3 if nq > 1024 else 10
+        want = cj.jump_score_cuda(*t, *JUMP_SCORES, JUMP)
+        auto = cj.kernel_layout(B, nq)
+        rows = []
+        # lanes per thread, 0: the kernel's own choice
+        for lanes in (0, *(x for x in cj.LANE_CHOICES
+                           if cj.kernel_layout(B, nq, x)[1] <= 64)):
+            fn = lambda: cj.jump_score_cuda(*t, *JUMP_SCORES, JUMP,
+                                            lanes=lanes)
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"{lanes} lanes a thread differ at "
+                                     f"{(B, nq, nr)}")
+            rows.append({"lanes": lanes,
+                         "warps_per_row": cj.kernel_layout(B, nq, lanes)[1],
+                         "ms": _event_ms(fn, calls)})
+        cj.raise_on_kernel_error()
+        old = lambda: cj.jump_score_flagged_cuda(*t, *JUMP_SCORES, JUMP, 30)
+        if not torch.equal(old()[0], want):
+            raise AssertionError(f"block-barrier kernel differs at "
+                                 f"{(B, nq, nr)}")
+        _record(ctx, "jump_score_cuda_layouts", f"B={B},q={nq},refs=2x{nr}",
+                {"timed_by": "cuda events", "iters": calls},
+                auto_layout=list(auto), layouts=rows,
+                block_barrier_ms=_event_ms(old, calls))
 
 
 def _split_inputs(ctx):
@@ -324,6 +405,75 @@ def bench_split_cuda(ctx):
                            times["sec_per_iter"]))
 
 
+def bench_split_cuda_factored(ctx):
+    """The CUDA split-scan kernel on the factored layout: half as many
+    reads as ``--split-shape`` has rows, each against the same two
+    targets, so as many (read, target) pairs."""
+    from ..align.cuda_splitscore import split_score_factored_cuda
+    (reads, quals, targets, beg, end, rl, tl, flank, lm, lx, n_scan), \
+        _shape, terms = _split_inputs(ctx)
+    B, T, L = ctx.args.split_shape
+    n = max(1, B // 2)
+    t = targets[:2].shape[0]
+    args = (reads[:n], quals[:n], rl[:n], targets[:t], beg[:t], end[:t],
+            tl[:t], flank, lm, lx, n_scan)
+    times = ctx.timer(lambda: split_score_factored_cuda(*args),
+                      "split_score_kernel")
+    _record(ctx, "split_scan_cuda_factored",
+            f"n={n},t={t},T={T},L={L},S={n_scan}", times,
+            **_split_rates(n * t, terms * n * t / B, times["sec_per_iter"]))
+
+
+def bench_scan_router(ctx):
+    """The exact route of the split-scan router as the scorer calls it:
+    ``DeviceScanContext.scan_multi`` on one breakend's reads and junction
+    targets, from numpy in to numpy out. Host clock, median of the timed
+    calls; the native host scan of the same call beside it."""
+    from types import SimpleNamespace
+
+    from .. import native_core
+    from ..scoring.device_scan import DeviceScanContext
+    from ..scoring.evidence import QscoreSnp, split_read_scan_multi
+    native_core.load()
+    n, t = ctx.args.router_shape
+    rng = ctx.rng
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    lens = rng.integers(101, 151, n)
+    off = np.zeros(n + 1, np.int64)
+    off[1:] = np.cumsum(lens)
+    batch = SimpleNamespace(
+        seq=bases[rng.integers(0, 4, off[-1])],
+        qual=rng.integers(2, 41, off[-1]).astype(np.uint8),
+        seq_off=off, qual_off=off.copy(), n=n)
+    targets = [bases[rng.integers(0, 4, 400 + 20 * k)] for k in range(t)]
+    ranges = [(len(tg) // 2 - 3, len(tg) // 2 + 2) for tg in targets]
+    idx = np.arange(n, dtype=np.int64)
+    qconv = QscoreSnp(1e-3)
+    scan = DeviceScanContext(device=ctx.device)
+    want = split_read_scan_multi(FLANK, batch, idx, qconv, targets, ranges)
+    got = scan.scan_multi(FLANK, batch, idx, qconv, targets, ranges)
+    if not (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1])):
+        raise AssertionError("scan_multi != the native host scan")
+
+    def median_s(fn):
+        times = []
+        for _ in range(10 * ctx.timer.iters):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    sec = median_s(lambda: scan.scan_multi(FLANK, batch, idx, qconv,
+                                           targets, ranges))
+    native = median_s(lambda: split_read_scan_multi(FLANK, batch, idx, qconv,
+                                                    targets, ranges))
+    _record(ctx, "scan_router_exact", f"n={n},t={t},L=101-150,T=400+",
+            {"sec_per_iter": sec, "timed_by": "host clock",
+             "iters": 10 * ctx.timer.iters},
+            native_scan_sec_per_iter=native, split_scans_per_s=n * t / sec)
+
+
 def bench_split_mxu(ctx):
     """The matmul split scan over junction groups
     (device_splitscore_mxu.junction_split_score)."""
@@ -364,12 +514,18 @@ BENCHES = {
     "jump_cuda": bench_jump_cuda,
     "jump_cuda_bounded": bench_jump_cuda_bounded,
     "split_cuda": bench_split_cuda,
+    "split_cuda_factored": bench_split_cuda_factored,
     "split_mxu": bench_split_mxu,
     "split_exact": bench_split_exact,
     "jump": bench_jump,
 }
+# on request only: some 25 timed layouts; and the router, which "all"
+# runs on the card only (on the cpu its plain form takes ~0.15 s a call)
+EXTRA_BENCHES = {"jump_layouts": bench_jump_layouts,
+                 "scan_router": bench_scan_router}
 # the benches that launch a hand-written kernel: the card only
-CUDA_ONLY = ("jump_cuda", "jump_cuda_bounded", "split_cuda")
+CUDA_ONLY = ("jump_cuda", "jump_cuda_bounded", "jump_layouts", "split_cuda",
+             "split_cuda_factored")
 
 
 def _shape(n):
@@ -386,7 +542,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Time the port's kernels and their plain forms")
     ap.add_argument("--kernel", default="all",
-                    choices=["all"] + sorted(BENCHES))
+                    choices=["all"] + sorted({**BENCHES, **EXTRA_BENCHES}))
     ap.add_argument("--json", default=None,
                     help="append the JSON lines to this file")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -401,6 +557,8 @@ def main(argv=None) -> int:
                     metavar="B,T,L")
     ap.add_argument("--mxu-shape", type=_shape(4), default=(8, 64, 500, 150),
                     metavar="G,R,T,L")
+    ap.add_argument("--router-shape", type=_shape(2), default=(47, 2),
+                    metavar="N,T")
     ap.add_argument("--matmul-n", type=int, default=2048)
     args = ap.parse_args(argv)
 
@@ -415,6 +573,8 @@ def main(argv=None) -> int:
     else:
         device_name = "cpu"
     names = list(BENCHES) if args.kernel == "all" else [args.kernel]
+    if args.kernel == "all" and device.type == "cuda":
+        names.insert(names.index("split_mxu") + 1, "scan_router")
     if device.type == "cpu":
         if args.kernel in CUDA_ONLY:
             print(json.dumps({"error": f"{args.kernel} launches a CUDA "
@@ -429,7 +589,7 @@ def main(argv=None) -> int:
                 3 if device.type == "cpu" else 2 if name == "jump" else 20)
             ctx = Context(args, device, device_name, out, iters)
             try:
-                BENCHES[name](ctx)
+                {**BENCHES, **EXTRA_BENCHES}[name](ctx)
             except Exception as e:  # keep going; report the failure
                 failed += 1
                 _emit({"kernel": name,

@@ -124,6 +124,79 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                        wide[:, :8], one, *ARGS)
 
 
+def _padded(jobs, rows, nq, nr):
+    """Jobs padded to widths of the caller's choice (pad_jobs pads to
+    the scorer's buckets)."""
+    q, ql = dj._pad_to([j[0] for j in jobs] + [b"\x01"] * (rows - len(jobs)),
+                       rows, nq, 1)
+    r1, r1l = dj._pad_to([j[1] for j in jobs] + [b"\x02"] * (rows - len(jobs)),
+                         rows, nr, 2)
+    r2, r2l = dj._pad_to([j[2] for j in jobs] + [b"\x02"] * (rows - len(jobs)),
+                         rows, nr, 2)
+    return q, ql, r1, r1l, r2, r2l
+
+
+def test_kernel_main_path_bucket(cuda):
+    """The bucket the WGS-shaped workflow run gives the kernel: (8, 256,
+    1024, 1024), one warp per row."""
+    jobs = _jobs(np.random.default_rng(77), 6, 250, 1000)
+    arrays = dj.pad_jobs(jobs, 8)
+    assert tuple(arrays[i].shape[1] for i in (0, 2, 4)) == (256, 1024, 1024)
+    lanes, warps = cuda_jumpscore.kernel_layout(8, 256)
+    assert 32 * lanes * warps >= 257 > 32 * lanes * (warps - 1)
+    kern, plain = _kernel_and_plain(arrays, cuda)
+    np.testing.assert_array_equal(kern, plain)
+
+
+@pytest.mark.parametrize("lanes", cuda_jumpscore.LANE_CHOICES)
+@pytest.mark.parametrize("over", (0, 1), ids=("fits", "one_more"))
+def test_kernel_widths_at_a_warps_edge(cuda, lanes, over):
+    """nq + 1 = 32 * lanes lanes fill one warp exactly; one lane more
+    takes a second warp at that many lanes per thread, and the next
+    choice of lanes when the kernel chooses."""
+    nq = 32 * lanes - 1 + over
+    jobs = _jobs(np.random.default_rng(lanes + over), 5, nq, 2 * nq)
+    jobs.append((jobs[0][0][:3], jobs[0][1], jobs[0][2]))  # qlen << nq
+    t = dj.from_reference_inputs(*_padded(jobs, 7, nq, 2 * nq), cuda)
+    assert cuda_jumpscore.kernel_layout(7, nq, lanes) == (lanes, 1 + over)
+    plain = dj.batched_jump_score(*t, *ARGS, nq, 2 * nq, 2 * nq)
+    for kw in ({}, {"lanes": lanes}):
+        kern = cuda_jumpscore.jump_score_cuda(*t, *ARGS, **kw)
+        assert torch.equal(kern, plain), kw
+    cuda_jumpscore.raise_on_kernel_error()
+
+
+@pytest.mark.parametrize("lanes", cuda_jumpscore.LANE_CHOICES)
+@pytest.mark.parametrize("nq", (530, 1500))
+def test_kernel_every_layout_gives_the_same_scores(cuda, lanes, nq):
+    """Two widths through every lanes-per-thread choice, from 1 warp a
+    row to 16: a layout changes the time, never the score. Rows of many
+    lengths, so some warps of a row lie wholly above its query end."""
+    rng = np.random.default_rng(5)
+    jobs = _jobs(rng, 20, nq, 900) + _jobs(rng, 6, 60, 900)
+    t = dj.from_reference_inputs(*_padded(jobs, 28, nq, 900), cuda)
+    plain = dj.batched_jump_score(*t, *ARGS, nq, 900, 900)
+    kern = cuda_jumpscore.jump_score_cuda(*t, *ARGS, lanes=lanes)
+    assert torch.equal(kern, plain)
+    cuda_jumpscore.raise_on_kernel_error()
+
+
+def test_kernel_layout_by_batch(cuda):
+    """Which form a batch takes: the fewest lanes per thread for which
+    its warps have a scheduler each (422 warps); the most lanes where
+    none does."""
+    assert [cuda_jumpscore.kernel_layout(B, nq) for B, nq in
+            ((8, 256), (64, 512), (256, 128), (256, 512), (8, 8192),
+             (256, 4096))] == [
+        (3, 3), (3, 6), (5, 1), (17, 1), (5, 52), (17, 8)]
+    t = dj.from_reference_inputs(*_padded(_jobs(
+        np.random.default_rng(1), 2, 30, 40), 2, 30, 40), cuda)
+    with pytest.raises(ValueError, match="lanes"):
+        cuda_jumpscore.jump_score_cuda(*t, *ARGS, lanes=4)
+    with pytest.raises(ValueError, match="extend"):
+        cuda_jumpscore.jump_score_cuda(*t, *ARGS[:3], 1, *ARGS[4:])
+
+
 # ---- the bounded jump DP (csrc/jump_score_bounded.cu)
 
 def _bounded_jobs(rng, B, nq_max, nr_max, rounds):
@@ -270,6 +343,75 @@ def test_split_kernel_matches_plain(cuda, B, L, T, n_scan, iupac):
     np.testing.assert_array_equal(kb, pb)
     np.testing.assert_array_equal(kp, pp)
     assert kb.dtype == np.float32 and kp.dtype == np.int32
+
+
+@pytest.mark.parametrize("n,t,L,T,n_scan", [
+    (256, 2, 256, 500, 512),        # 512 pairs: the Pallas bench shape
+    (47, 2, 256, 400, 512),         # a typical workflow call, ~93 pairs
+    (9, 5, 512, 1900, 2048), (1, 1, 256, 300, 512), (3, 130, 256, 300, 512)])
+def test_split_factored_kernel_matches_plain_and_replicated(cuda, n, t, L,
+                                                            T, n_scan):
+    """The factored call == the factored plain form == the replicated
+    call on the replicated rows, bit for bit."""
+    rng = np.random.default_rng(n + t)
+    rows = _split_rows(rng, n, L, T, True)
+    tg = _split_rows(rng, t, L, T, True)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    reads, quals, rl = put(rows[0]), put(rows[1]), put(rows[5])
+    targets, beg, end, tl = put(tg[2]), put(tg[3]), put(tg[4]), put(tg[6])
+    lm, lx = (put(a) for a in ds.make_luts(1e-3))
+    launches = cuda_splitscore.KERNEL_LAUNCHES["split_score"]
+    out = torch.empty((2, n, t), dtype=torch.int32, device=cuda)
+    kb, kp = cuda_splitscore.split_score_factored_cuda(
+        reads, quals, rl, targets, beg, end, tl, 50, lm, lx, n_scan, out=out)
+    assert cuda_splitscore.KERNEL_LAUNCHES["split_score"] == launches + 1
+    pb, pp = ds.batched_split_score_factored(
+        reads, quals, rl, targets, beg, end, tl, 50, lm, lx, n_scan)
+    rep = lambda a: a.repeat_interleave(t, dim=0).contiguous()
+    til = lambda a: a.repeat(n, *([1] * (a.dim() - 1))).contiguous()
+    rb, rp = cuda_splitscore.split_score_cuda(
+        rep(reads), rep(quals), til(targets), til(beg), til(end), rep(rl),
+        til(tl), 50, lm, lx, n_scan)
+    torch.cuda.synchronize()
+    assert kb.shape == (n, t) and kb.dtype == torch.float32
+    assert torch.equal(kb, pb) and torch.equal(kp, pp)
+    assert torch.equal(kb.reshape(-1), rb) and torch.equal(kp.reshape(-1), rp)
+    assert torch.equal(out[0].view(torch.float32), kb)
+    assert torch.isfinite(kb).any()
+
+
+def test_scan_multi_on_the_card_copies_once_each_way(cuda):
+    """DeviceScanContext.scan_multi on CUDA == the native host scan, bit
+    for bit, with one host-to-device and one device-to-host copy a call
+    (the LUTs went over at the first)."""
+    from manta_tpu_torch.io.bam import BamReader
+    from manta_tpu_torch.scoring import device_scan
+    from manta_tpu_torch.scoring.evidence import (
+        QscoreSnp, split_read_scan_multi,
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    batch = BamReader(os.path.join(
+        repo, "tests", "data", "demo",
+        "G15512.HCC1954.1.COST16011_region.bam")).fetch(
+            "8", 107652000, 107655000)
+    seq = lambda i: batch.seq[batch.seq_off[i]:batch.seq_off[i + 1]]
+    targets = [np.concatenate([seq(0), seq(1)[:40]]),
+               np.concatenate([seq(1), seq(0)[:60]])]
+    ranges = [(len(seq(0)) - 3, len(seq(0)) + 2),
+              (len(seq(1)) - 4, len(seq(1)) + 1)]
+    qconv = QscoreSnp(1e-3)
+    ctx = device_scan.DeviceScanContext(device=cuda)
+    for idx in (np.arange(0, 47, dtype=np.int64),
+                np.arange(10, 300, dtype=np.int64)):
+        copies = dict(device_scan.EXACT_COPIES)
+        launches = cuda_splitscore.KERNEL_LAUNCHES["split_score"]
+        got = ctx.scan_multi(50, batch, idx, qconv, targets, ranges)
+        want = split_read_scan_multi(50, batch, idx, qconv, targets, ranges)
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+        assert device_scan.EXACT_COPIES == {"h2d": copies["h2d"] + 1,
+                                            "d2h": copies["d2h"] + 1}
+        assert cuda_splitscore.KERNEL_LAUNCHES["split_score"] == launches + 1
 
 
 def test_split_wrapper_rejects_what_the_kernel_does_not_take(cuda):

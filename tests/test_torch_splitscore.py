@@ -357,3 +357,234 @@ def test_device_scan_tier_boundary(batch):
         50, batch, read_idx, qconv, targets, bp_ranges)
     assert np.array_equal(h_lnl, d_lnl)
     assert np.array_equal(h_pos, d_pos)
+
+
+# ---- the factored layout (n reads x t targets, each stored once)
+
+def _factored_case(rng, n, t, L, T):
+    """n reads and t targets as the replicated read-major arrays of the
+    JAX layout (row r * t + k: read r against target k). Reads are
+    planted in a target with mutations; there are IUPAC codes on both
+    sides, runs of N, a periodic target and reads cut from it (equal
+    sums at several positions: ties), a one-base read, and a target
+    whose breakend range leaves no scan position (n_k <= 0)."""
+    tgts = np.full((t, T), ord("N"), np.uint8)
+    tl = np.zeros(t, np.int32)
+    beg = np.zeros(t, np.int32)
+    end = np.zeros(t, np.int32)
+    for k in range(t):
+        m = int(rng.integers(T * 2 // 3, T + 1))
+        tg = BASES[rng.integers(0, 4, m)].copy()
+        if k == 1:
+            tg = np.resize(np.frombuffer(b"ACGGT", np.uint8), m).copy()
+        if k != 1:
+            run = int(rng.integers(0, m - 12))
+            tg[run:run + int(rng.integers(2, 12))] = ord("N")
+        if k % 2 == 0:
+            tg[rng.integers(0, m, 3)] = IUPAC[rng.integers(0, len(IUPAC), 3)]
+        tgts[k, :m] = tg
+        tl[k] = m
+        beg[k] = m + 7 if k == t - 1 and t > 2 else int(
+            rng.integers(min(40, m - 1), max(41, m - 40)))
+        end[k] = beg[k] + int(rng.integers(0, 6))
+    reads = np.full((n, L), 0xFF, np.uint8)
+    quals = np.zeros((n, L), np.uint8)
+    rl = np.zeros(n, np.int32)
+    for r in range(n):
+        k = r % t
+        m = 1 if r == 3 else int(rng.integers(max(2, L // 2), L + 1))
+        if t > 1 and k == 1:
+            m = 20          # short and unmutated: fits the score range
+        m = min(m, int(tl[k]) - 1)
+        p = int(rng.integers(0, int(tl[k]) - m))
+        rd = tgts[k, p:p + m].copy()
+        if r % 3 == 0 and k != 1:
+            rd[rng.integers(0, m, 2)] = BASES[rng.integers(0, 4, 2)]
+        if r % 5 == 1 and k != 1:
+            rd[rng.integers(0, m)] = IUPAC[rng.integers(0, len(IUPAC))]
+        reads[r, :m] = rd
+        # one quality on the periodic target's reads: exact ties
+        quals[r, :m] = 30 if k == 1 else rng.integers(0, 75, m)
+        rl[r] = m
+    rep = lambda a: np.repeat(a, t, axis=0)
+    til = lambda a: np.concatenate([a] * n)
+    return (rep(reads), rep(quals), til(tgts), til(beg), til(end), rep(rl),
+            til(tl))
+
+
+FACTORED = ((12, 2, 100, 400, 400, 50, 1e-3), (7, 3, 150, 300, 512, 50, 0.0),
+            (5, 1, 60, 260, 256, 20, 1e-3), (9, 4, 257, 600, 1024, 0, 0.0))
+
+
+@pytest.mark.parametrize("shape", FACTORED,
+                         ids=lambda s: "n%d_t%d_L%d_T%d" % s[:4])
+def test_factored_matches_replicated_jax_and_pallas(shape):
+    """The factored plain form == the replicated plain form == JAX's
+    exact form, float32 bit for bit and positions equal; Pallas in
+    interpret mode sums with a tree: positions equal, scores atol 2e-3
+    (tests/test_pallas_splitscore.py)."""
+    n, t, L, T, n_scan, flank, snp = shape
+    arrays = _factored_case(np.random.default_rng(n * 100 + t), n, t, L, T)
+    luts = _luts(snp)
+    f = ds.factored_from_replicated(*arrays, t, "cpu")
+    assert f[0].shape == (n, L) and f[3].shape == (t, T)
+    fb, fp = ds.batched_split_score_factored(*f, flank, *_t(*luts),
+                                             n_scan=n_scan)
+    assert fb.shape == (n, t) and fb.dtype == torch.float32
+    assert fp.dtype == torch.int32
+    fb, fp = fb.numpy().ravel(), fp.numpy().ravel()
+    rb, rp = _plain(arrays, flank, luts, n_scan)
+    np.testing.assert_array_equal(fb, rb)
+    np.testing.assert_array_equal(fp, rp)
+    jb, jp = jax_batched_split_score(*arrays, flank, *luts, n_scan=n_scan)
+    np.testing.assert_array_equal(fb, np.asarray(jb))
+    np.testing.assert_array_equal(fp, np.asarray(jp))
+    pb, pp = pallas_split_score(*arrays, flank, *luts, n_scan=n_scan,
+                                interpret=True)
+    finite = np.isfinite(fb)
+    np.testing.assert_array_equal(finite, np.isfinite(np.asarray(pb)))
+    np.testing.assert_allclose(fb[finite], np.asarray(pb)[finite], atol=2e-3)
+    # Pallas' tree sum can break an exact tie the other way
+    differ = (fp != np.asarray(pp)) & finite
+    assert np.abs(fb[differ] - np.asarray(pb)[differ]).max(initial=0) < 2e-3
+    if t > 2:
+        assert np.isneginf(fb.reshape(n, t)[:, -1]).all()
+    if t > 1:
+        # the periodic target really ties: a read cut from it reaches its
+        # best sum again one period on, and the first position is kept
+        tied = 0
+        for row in range(t + 1, n * t, t * t):      # read k = 1, target 1
+            sums = _position_sums(*(a[row] for a in arrays), flank, luts)
+            at_best = np.flatnonzero(sums == sums.max())
+            tied += len(at_best) > 1
+            scan_start = max(0, int(arrays[3][row] - arrays[5][row]) + 2)
+            assert fb[row] == sums.max()
+            assert fp[row] == scan_start + at_best[0]
+        assert tied
+
+
+def _position_sums(read, qual, target, beg, end, rl, tl, flank, luts):
+    """Every valid scan position's float32 sum of one row, terms added
+    in base order: a brute-force form of the scan's definition."""
+    lnm, lnx = luts
+    ln_random = np.float32(-np.log(4.0))
+    scan_start = max(0, int(beg) - int(rl) + 2)
+    scan_end = max(0, min(int(end), int(tl) - int(rl)))
+    sums = []
+    for p0 in range(scan_start, scan_end + 1):
+        acc = np.float32(0.0)
+        for j in range(int(rl)):
+            p = p0 + j
+            if not (beg - flank < p <= end + flank):
+                continue
+            q, tb = read[j], target[min(p, len(target) - 1)]
+            qi = min(max(int(qual[j]), 2), 70)
+            if q == ord("N") or tb == ord("N"):
+                term = ln_random
+            else:
+                term = lnx[qi] if q != tb else lnm[qi]
+            acc = np.float32(acc + np.float32(term))
+        sums.append(acc)
+    return np.array(sums, np.float32)
+
+
+def test_factored_dispatch_fills_out_on_cpu():
+    arrays = _factored_case(np.random.default_rng(2), 6, 2, 80, 300)
+    luts = _t(*_luts(1e-3))
+    f = ds.factored_from_replicated(*arrays, 2, "cpu")
+    want = ds.batched_split_score_factored(*f, 50, *luts, n_scan=300)
+    out = torch.empty((2, 6, 2), dtype=torch.int32)
+    plain_calls = ds.PLAIN_CALLS["cuda"]
+    best, pos = ds.split_score_factored(*f, 50, *luts, n_scan=300, out=out)
+    assert torch.equal(best, want[0]) and torch.equal(pos, want[1])
+    assert torch.equal(out[0].view(torch.float32), want[0])
+    assert torch.equal(out[1], want[1])
+    assert ds.PLAIN_CALLS["cuda"] == plain_calls
+    launches = cuda_splitscore.KERNEL_LAUNCHES["split_score"]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_splitscore.split_score_factored_cuda(*f, 50, *luts, n_scan=300)
+    assert cuda_splitscore.KERNEL_LAUNCHES["split_score"] == launches
+
+
+def test_factored_from_replicated_refuses_other_rows():
+    arrays = list(_factored_case(np.random.default_rng(4), 4, 2, 40, 120))
+    with pytest.raises(ValueError, match="not n reads"):
+        ds.factored_from_replicated(*arrays, 3, "cpu")
+    bad = [a.copy() for a in arrays]
+    bad[0][1, 0] ^= 1                       # second row of read 0
+    with pytest.raises(ValueError, match="one read differ"):
+        ds.factored_from_replicated(*bad, 2, "cpu")
+    bad = [a.copy() for a in arrays]
+    bad[3][2] += 1                          # bp_beg of target 0, read 1
+    with pytest.raises(ValueError, match="do not repeat"):
+        ds.factored_from_replicated(*bad, 2, "cpu")
+
+
+def _stage_reads_loop(batch, read_idx):
+    """The per-read staging loop the vectorised stage_reads replaced."""
+    from manta_tpu_torch.scoring.device_scan import _bucket
+    n = len(read_idx)
+    read_lens = (batch.seq_off[read_idx + 1]
+                 - batch.seq_off[read_idx]).astype(np.int32)
+    Lp = _bucket(int(read_lens.max()))
+    reads = np.full((n, Lp), 0xFF, np.uint8)
+    quals = np.zeros((n, Lp), np.uint8)
+    for r in range(n):
+        i = int(read_idx[r])
+        s0, s1 = int(batch.seq_off[i]), int(batch.seq_off[i + 1])
+        q0, q1 = int(batch.qual_off[i]), int(batch.qual_off[i + 1])
+        reads[r, :s1 - s0] = batch.seq[s0:s1]
+        quals[r, :q1 - q0] = batch.qual[q0:q1]
+    return reads, quals, read_lens
+
+
+def test_stage_reads_matches_the_loop_on_a_ragged_batch():
+    from types import SimpleNamespace
+
+    from manta_tpu_torch.scoring.device_scan import stage_reads
+    rng = np.random.default_rng(9)
+    lens = np.array([1, 300, 17, 101, 256, 2, 257, 64], np.int64)
+    off = np.zeros(len(lens) + 1, np.int64)
+    off[1:] = np.cumsum(lens)
+    ragged = SimpleNamespace(
+        seq=BASES[rng.integers(0, 4, off[-1])],
+        qual=rng.integers(0, 60, off[-1]).astype(np.uint8),
+        seq_off=off, qual_off=off.copy(), n=len(lens))
+    for idx in (np.arange(8), np.array([6, 0, 3, 3, 5]), np.array([0, 5])):
+        idx = idx.astype(np.int64)
+        got = stage_reads(ragged, idx)
+        want = _stage_reads_loop(ragged, idx)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+
+
+def test_stage_reads_matches_the_loop_on_demo_reads(batch):
+    from manta_tpu_torch.scoring.device_scan import stage_reads
+    idx = np.arange(5, 200, 3, dtype=np.int64)
+    for g, w in zip(stage_reads(batch, idx), _stage_reads_loop(batch, idx)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_exact_staging_is_one_buffer_in_the_factored_layout(batch):
+    """What one scan call hands the split scan: views of one buffer,
+    each read and each target once."""
+    from manta_tpu_torch.scoring.device_scan import ExactStaging, stage_reads
+    read_idx = np.arange(0, 40, dtype=np.int64)
+    targets, bp_ranges = _targets_from(batch, read_idx)
+    staged = ExactStaging(torch.device("cpu")).stage(
+        batch, read_idx, targets, bp_ranges, 256)
+    reads, quals, rl, tgts, beg, end, tl = staged
+    want = stage_reads(batch, read_idx)
+    np.testing.assert_array_equal(reads.numpy(), want[0])
+    np.testing.assert_array_equal(quals.numpy(), want[1])
+    np.testing.assert_array_equal(rl.numpy(), want[2])
+    assert tgts.shape == (2, 256)
+    assert beg.tolist() == [b for b, _e in bp_ranges]
+    assert end.tolist() == [e for _b, e in bp_ranges]
+    assert tl.tolist() == [len(t) for t in targets]
+    for k, tg in enumerate(targets):
+        np.testing.assert_array_equal(tgts[k, :len(tg)].numpy(), tg)
+        assert (tgts[k, len(tg):] == ord("N")).all()
+    base = reads.untyped_storage().data_ptr()
+    assert all(x.untyped_storage().data_ptr() == base for x in staged)
