@@ -14,7 +14,7 @@ What replaces the JAX package's device code:
   PyTorch forms (exact and bounded-chain) and the bucketed scorer
   (``manta_tpu.align.device_jumpscore``);
 - ``align.cuda_jumpscore`` + ``csrc/jump_score.cu``,
-  ``csrc/jump_score_bounded.cu`` (both on ``csrc/jump_dp.cuh``): the
+  ``csrc/jump_score_bounded.cu`` (both on ``csrc/jump_systolic.cuh``): the
   hand-written Hopper kernels that replace the Pallas kernel
   ``manta_tpu.align.pallas_jumpscore._kernel`` in its exact and its
   bounded-chain form;
@@ -27,6 +27,14 @@ What replaces the JAX package's device code:
 - ``scoring.device_scan``: the split-scan router
   (``--device-scoring exact|mxu``), built by ``scoring.scorer``;
 - ``parallel.forkpool``: the fork-result drain;
+- ``parallel.mesh``, ``parallel.scan_parallel``,
+  ``parallel.mesh_scoring``, ``parallel.phase1_mesh``,
+  ``parallel.distributed``: a mesh of torch devices, the scan and the
+  contig scorer cut over it, the phase-1 gates as tensors, and the
+  multi-host phases over ``torch.distributed``
+  (``manta_tpu.parallel.*``);
+- ``graft_entry``: ``entry()`` and the multi-device dry run
+  ``dryrun_multichip`` (the repository's ``__graft_entry__.py``);
 - ``workflow.run``: the workflow and its CLI
   (``python -m manta_tpu_torch.workflow.run``);
 - ``tools.device_timing``: kernel timing on the card

@@ -20,7 +20,8 @@ Two forms with one contract, on int32 tensors in the JAX layout
 - ``cuda_jumpscore.jump_score_cuda``, the hand-written Hopper kernel.
   It cuts the query lanes into strips that hand two boundary values a
   column upwards; ``batched_jump_score_strips`` is the plain model of
-  that cut, for the tests.
+  that cut, for the tests (``batched_jump_score_flagged_strips`` that of
+  the bounded kernel's cut into threads and strips).
 
 The bounded-insert-chain variant (manta_tpu's
 ``pallas_jump_score_flagged`` / ``pallas_jump_score_bounded``) has the
@@ -154,7 +155,9 @@ def _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
              nq_pad, nr1_pad, nr2_pad, prefix_rounds, strip=0):
     """Both phases of the jump DP; returns (best int32 (B,), flag bool
     (B,) or None for the exact chain). ``strip`` > 0 walks the exact
-    chain in strips of that many lanes (``_walk_strips``)."""
+    chain in strips of that many lanes (``_walk_strips``); with
+    ``prefix_rounds`` > 0 it is (lanes per thread, threads per strip) of
+    the bounded chain's cut (``_walk_bounded_strips``)."""
     if query.is_cuda:
         PLAIN_CALLS["cuda"] += 1
     B = query.shape[0]
@@ -185,6 +188,10 @@ def _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
             if prefix_rounds > 0 else None)
 
     def walk(ref, ref_len, n, state, best, is_ref1, flag):
+        if strip and prefix_rounds > 0:
+            return _walk_bounded_strips(
+                query, query_len, ref, ref_len, n, state, best, scores,
+                jump_score, is_ref1, prefix_rounds, flag, *strip)
         if strip:
             return (*_walk_strips(query, query_len, ref, ref_len, n, state,
                                   best, scores, jump_score, is_ref1, strip),
@@ -293,6 +300,160 @@ def batched_jump_score_strips(query, query_len, ref1, ref1_len, ref2,
     return _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
                     match, mismatch, open_, extend, off_edge, jump_score,
                     nq_pad, nr1_pad, nr2_pad, 0, strip=int(strip))[0]
+
+
+def _window_max(g, base, w: int, lanes: int):
+    """The kernel's sliding maximum (csrc/jump_systolic.cuh window_max)
+    for every thread of a strip at once: out[:, t, j] = max(g[:, k] for
+    base[t] + j - w < k <= base[t] + j), by the same two passes with the
+    chunks of w lanes anchored at each thread's own lanes. g (B, n),
+    base (T,) long; returns (B, T, lanes)."""
+    B = g.shape[0]
+    neg = torch.full((B, base.numel()), NEG, dtype=torch.int32,
+                     device=g.device)
+    out = []
+    u = neg
+    for j in range(lanes):
+        u = neg if j & (w - 1) == 0 else torch.maximum(u, g[:, base + j])
+        out.append(u)
+    sfx = neg
+    for j in range(lanes - 1, -1, -1):
+        q = base + j
+        if j == lanes - 1 or (j + 1) & (w - 1) == 0:
+            pivot = j & ~(w - 1)
+            sfx = neg
+            for k in range(j - w + 2, pivot + 1):
+                sfx = torch.maximum(sfx, g[:, base + k])
+        sfx = torch.maximum(sfx, g[:, q - w + 1])
+        out[j] = torch.maximum(out[j], sfx)
+    return torch.stack(out, dim=2)
+
+
+def _tail_windows(g, own, w: int, lanes: int):
+    """The kernel's form of both windows where they reach below a
+    thread's first lane at every lane (lanes <= w): below the thread
+    prefix maxima of the tail T[n] = g[:, own[t] - n], the first window
+    of lane j ending at T[w - j] and the second at T[2w - j]; inside the
+    thread one running maximum of the thread's own sources. g (B, n),
+    own (T,) long; returns two (B, T, lanes)."""
+    n = torch.arange(1, 2 * w + 1, device=g.device)
+    tail = torch.cummax(g[:, own[:, None] - n[None, :]], dim=2).values
+    mine = g[:, own[:, None] + torch.arange(lanes, device=g.device)]
+    neg = torch.full_like(mine[:, :, :1], NEG)
+    run = torch.cummax(torch.cat([neg, mine[:, :, :-1]], dim=2),
+                       dim=2).values
+    j = torch.arange(lanes, device=g.device)
+    return (torch.maximum(tail[:, :, w - j - 1], run),
+            torch.maximum(tail[:, :, 2 * w - j - 1], run))
+
+
+def _walk_bounded_strips(query, query_len, ref, ref_len, n_cols, state, best,
+                         scores, jump_score, is_ref1, prefix_rounds, flag,
+                         lanes, threads):
+    """One phase of the bounded-chain jump DP in the form of the CUDA
+    kernel (csrc/jump_systolic.cuh, kBounded): strips of ``threads``
+    threads of ``lanes`` query lanes. A column of a strip is a row of
+    chain sources: the 2w sources below the strip, which are the top 2w
+    entries of the row of the strip below (NEG below lane 0), then the
+    strip's own. A source at or under BAD stays f - extend*k and is not
+    set to NEG. Every thread takes its lanes' two windows from the row,
+    by ``_tail_windows`` where the window is at least as long as the
+    thread's lanes and by ``_window_max`` where it is shorter; between
+    strips only the row's top 2w entries and
+    the diagonal value of the last lane travel. A row's strips that lie
+    wholly above its query length are not walked, and the flag looks at
+    lanes at or below the query length only."""
+    match, mismatch, open_, extend = scores
+    pm, pd, pi, pj = (x.clone() for x in state)
+    B, nq = query.shape
+    dev = query.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    w = 1 << prefix_rounds
+    strip = lanes * threads
+    qn = query_len[:, None]
+    qsh = torch.cat([torch.zeros((B, 1), **i32), query], dim=1)
+    match_t = torch.tensor(match, **i32)
+    mismatch_t = torch.tensor(mismatch, **i32)
+    bounds = [(lo, min(lo + strip, nq + 1))
+              for lo in range(0, nq + 1, strip)]
+    base = 2 * w + lanes * torch.arange(threads, device=dev) - 1
+    for c in range(n_cols):
+        rc = ref[:, c:c + 1]
+        col_act = (c < ref_len)[:, None]
+        dprev = torch.full((B,), BAD, **i32)
+        tail = torch.full((B, 2 * w), NEG, **i32)
+        for lo, hi in bounds:
+            n = hi - lo
+            q = torch.arange(lo, hi, **i32)[None, :]
+            om, od, oi, oj = (x[:, lo:hi] for x in (pm, pd, pi, pj))
+            dmax = torch.maximum(torch.maximum(om, od), oi)
+            if not is_ref1:
+                dmax = torch.maximum(dmax, oj)
+            d = torch.cat([dprev[:, None], dmax[:, :-1]], dim=1)
+            sub = torch.where(qsh[:, lo:hi] == rc, match_t, mismatch_t)
+            vm = torch.where(q == 0, 0, d + sub)
+            vd = torch.maximum(torch.maximum(om + open_, od), oi) + extend
+            vd = torch.where(q <= (1 if is_ref1 else 0), BAD, vd)
+            # the source lane q opens for lane q + 1; only lane 0 of the
+            # ref1 phase is NEG
+            if is_ref1:
+                g = torch.where(q == 0, NEG, vm + open_ - extend * (q + 1))
+            else:
+                g = torch.maximum(vm + open_, oj) - extend * (q + 1)
+            row = torch.cat([tail, g, torch.full((B, strip - n), NEG,
+                                                 **i32)], dim=1)
+            if lanes <= w:
+                win, low = _tail_windows(row, base + 1, w, lanes)
+            else:
+                win = _window_max(row, base, w, lanes)
+                low = _window_max(row, base - w, w, lanes)
+            win = win.reshape(B, strip)[:, :n]
+            low = low.reshape(B, strip)[:, :n]
+            e1 = extend * (q + 1)
+            vi = torch.clamp_min(win + e1, BAD)
+            raised = (low > win) & (low + e1 > BAD) & (q <= qn)
+            if is_ref1:
+                vj = torch.where(
+                    q == 0, BAD,
+                    torch.maximum(torch.maximum(vm + jump_score,
+                                                vi + jump_score), oj))
+            else:
+                vj = oj
+            act = col_act & (lo <= qn)
+            flag = flag | (act[:, 0] & raised.any(dim=1))
+            dprev = dmax[:, -1]
+            tail = row[:, strip:strip + 2 * w]
+            pm[:, lo:hi] = torch.where(act, vm, om)
+            pd[:, lo:hi] = torch.where(act, vd, od)
+            pi[:, lo:hi] = torch.where(act, vi, oi)
+            pj[:, lo:hi] = torch.where(act, vj, oj)
+        end_val = torch.gather(pm, 1, qn.long())[:, 0]
+        best = torch.where(col_act[:, 0], torch.maximum(best, end_val), best)
+    return (pm, pd, pi, pj), best, flag
+
+
+def batched_jump_score_flagged_strips(query, query_len, ref1, ref1_len, ref2,
+                                      ref2_len, match, mismatch, open_,
+                                      extend, off_edge, jump_score,
+                                      nq_pad: int, nr1_pad: int, nr2_pad: int,
+                                      prefix_rounds: int, lanes: int,
+                                      threads: int):
+    """``batched_jump_score_flagged`` in the decomposition of the CUDA
+    kernel: strips of ``threads`` threads of ``lanes`` query lanes
+    (``_walk_bounded_strips``). (best, flag) int32 (B,), equal to
+    ``batched_jump_score_flagged`` for every such cut. The plain model of
+    the bounded kernel's exchange; the tests run it, nothing else."""
+    if prefix_rounds < 1:
+        raise ValueError(f"prefix_rounds must be >= 1, got {prefix_rounds}")
+    if lanes < 1 or threads < 1:
+        raise ValueError(f"lanes and threads must be >= 1, got {lanes}, "
+                         f"{threads}")
+    best, flag = _jump_dp(query, query_len, ref1, ref1_len, ref2, ref2_len,
+                          match, mismatch, open_, extend, off_edge,
+                          jump_score, nq_pad, nr1_pad, nr2_pad,
+                          int(prefix_rounds),
+                          strip=(int(lanes), int(threads)))
+    return best, flag.to(torch.int32)
 
 
 def batched_jump_score_flagged(query, query_len, ref1, ref1_len, ref2,

@@ -634,7 +634,10 @@ class SVCandidateAssemblyRefiner:
                  device=None):
         """``jump_score_backend``: ``"native"`` (the host score batch),
         ``"device"`` (the bucketed scorer of ``align.device_jumpscore``
-        on the torch device ``device``) or None."""
+        on the torch device ``device``), a scorer of the caller's own (a
+        callable from a list of (query, ref1, ref2) jobs to their int32
+        scores, as ``parallel.mesh_scoring.make_mesh_bucketed_scorer``
+        makes) or None."""
         self.opt = opt or RefinerOptions()
         self.is_output_contig = is_output_contig
         self.is_rna = is_rna
@@ -683,8 +686,8 @@ class SVCandidateAssemblyRefiner:
             from ..align.device_jumpscore import make_bucketed_scorer
             self._jump_score_backend = make_bucketed_scorer(
                 self.opt.spanning_scores, self.opt.jump_score, device)
-        elif jump_score_backend is None:
-            self._jump_score_backend = None
+        elif jump_score_backend is None or callable(jump_score_backend):
+            self._jump_score_backend = jump_score_backend
         else:
             raise ValueError(
                 f"unknown jump_score_backend {jump_score_backend!r}")

@@ -40,9 +40,8 @@
 // fill: a step per thread of the row in each phase, and about a chunk
 // for every further strip.
 //
-// The kernel this replaces (one block per row, one query lane per
-// thread, two __syncthreads per column; jump_dp.cuh) stays as the body of
-// the bounded-chain kernel, jump_score_bounded.cu.
+// The bounded-chain kernel (jump_score_bounded.cu) is the same walk with
+// another exchange for the insert chain.
 
 #include "jump_systolic.cuh"
 
@@ -50,6 +49,9 @@ extern "C" {
 
 // Widest padded query the kernel takes.
 int mt_cuda_jump_score_max_nq(void) { return kMaxNq; }
+
+// Most warps (strips) a row may take.
+int mt_cuda_jump_score_max_strips(void) { return kMaxStrips; }
 
 // Lanes per thread a batch of B rows of that query width takes when the
 // caller names none.
@@ -85,11 +87,11 @@ int mt_cuda_jump_score(const void* query, const void* qlen,
     if (nq < 0 || nr1 < 0 || nr2 < 0 || scratch_bytes < 0)
         return cudaErrorInvalidValue;
     const Scores s{match, mismatch, open, extend, off_edge, jump};
-    return launch_systolic_any(
+    return launch_systolic_any<false>(
         make_batch(query, qlen, ref1, r1len, ref2, r2len, out, B, nq, nr1,
                    nr2),
-        static_cast<int*>(scratch), (size_t)scratch_bytes, lanes, s,
-        static_cast<cudaStream_t>(stream));
+        nullptr, 0, static_cast<int*>(scratch), (size_t)scratch_bytes, lanes,
+        s, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -13,11 +13,13 @@ Counterpart of benchmarks/device_timing.py, one bench per entry of its
   jump_cuda          the CUDA jump kernel (exact insert chain), same shape
   jump_cuda_bounded  the CUDA bounded-chain kernel at prefix_rounds 3
                      and 5, same shape; ``n_flagged`` rows would rerun
-  jump_layouts       the CUDA jump kernel at the scorer's buckets, full
-                     rows, at every choice of lanes per thread, beside
-                     the block-barrier kernel it replaced
-                     (reached through the bounded entry with a window
-                     over every lane); not part of ``all``
+  jump_layouts       the CUDA jump kernels at the scorer's buckets, full
+                     rows, at every choice of lanes per thread: the
+                     exact kernel and the bounded one at prefix_rounds
+                     3 and 5, with the polls the warps spent waiting
+                     for one another; not part of ``all``
+                     (``--layout-bucket B,Q,R``: one bucket only;
+                     ``--layout-loops N``: timed loops a layout)
   split_exact        the plain PyTorch split scan     B=512 T=500 L=150
   split_cuda         the CUDA split-scan kernel, same shape, a row per
                      (read, target) pair
@@ -279,7 +281,7 @@ def bench_jump_cuda_bounded(ctx):
         _best, flag = jump_score_flagged_cuda(*t, *JUMP_SCORES, JUMP, rounds)
         n_flagged = int((flag != 0).sum())
         times = ctx.timer(lambda: jump_score_flagged_cuda(
-            *t, *JUMP_SCORES, JUMP, rounds), "jump_score_kernel")
+            *t, *JUMP_SCORES, JUMP, rounds), "jump_systolic_kernel")
         rerun = ctx.timer(lambda: jump_score_bounded_cuda(
             *t, *JUMP_SCORES, JUMP, rounds), whole_call=True)
         _record(ctx, f"jump_score_cuda_bounded_k{rounds}", shape, times,
@@ -295,36 +297,56 @@ LAYOUT_BUCKETS = ((8, 256, 1024), (64, 512, 1024), (256, 128, 256),
                   (8, 4096, 4096), (8, 8192, 8192))
 
 
-def _event_ms(fn, calls: int, repeats: int = 3) -> float:
-    """Least CUDA-event time of one call over ``repeats`` loops of
-    ``calls`` calls, in ms, after a warm-up call."""
+def _event_ms(fn, calls: int, repeats: int) -> dict:
+    """CUDA-event time of one call over ``repeats`` loops of ``calls``
+    calls after a warm-up call: the least (``ms``) and every loop's
+    (``ms_loops``). Beside each loop, what tells a slow loop's cause:
+    the host's time to enqueue its calls (``host_ms_loops``; near the
+    event time where the host held the card back) and the polls a
+    call's warps made while they waited for the warp below
+    (``polls_loops``: boundary words, tails)."""
     import torch
+    from ..align import cuda_jumpscore as cj
     fn()
     torch.cuda.synchronize()
-    best = float("inf")
+    cj.raise_on_kernel_error()
+    loops, host, polls = [], [], []
     for _ in range(repeats):
+        before = dict(cj.WAIT_POLLS)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
+        host.append((time.perf_counter() - t0) * 1e3 / calls)
         b.record()
         torch.cuda.synchronize()
-        best = min(best, a.elapsed_time(b) / calls)
-    return best
+        loops.append(a.elapsed_time(b) / calls)
+        cj.raise_on_kernel_error()
+        polls.append([(cj.WAIT_POLLS[k] - before[k]) / calls
+                      for k in ("boundary", "tail")])
+    return {"ms": min(loops), "ms_loops": loops, "host_ms_loops": host,
+            "polls_loops": polls}
 
 
 def bench_jump_layouts(ctx):
-    """Every layout of the CUDA jump kernel at the scorer's buckets, on
+    """Every layout of the CUDA jump kernels at the scorer's buckets, on
     rows of full length (the slowest a bucket can be), each checked
-    against the kernel's own choice; the block-barrier kernel beside
-    them. One record per bucket: ``ms`` by lanes per thread (0: the
-    kernel's choice) with the warps a row takes at it."""
+    against the kernel's own choice. One record per bucket: ``ms`` by
+    lanes per thread (0: the kernel's choice) with the warps a row takes
+    at it, for the exact kernel (``layouts``) and the bounded one at
+    each of BOUNDED_ROUNDS (``bounded_k<K>``, with the shared memory a
+    warp takes; layouts whose ring does not fit a block are left
+    out). ``--layout-bucket`` keeps the sweep to one bucket and
+    ``--layout-loops`` sets the timed loops a layout."""
     import torch
     from ..align import cuda_jumpscore as cj
     from ..align.device_jumpscore import from_reference_inputs
     bases = np.frombuffer(b"ACGT", np.uint8).astype(np.int32)
-    for B, nq, nr in LAYOUT_BUCKETS:
+    loops = ctx.args.layout_loops
+    for B, nq, nr in ([ctx.args.layout_bucket] if ctx.args.layout_bucket
+                      else LAYOUT_BUCKETS):
         q = bases[ctx.rng.integers(0, 4, (B, nq))]
         r1 = bases[ctx.rng.integers(0, 4, (B, nr))]
         r2 = bases[ctx.rng.integers(0, 4, (B, nr))]
@@ -333,11 +355,11 @@ def bench_jump_layouts(ctx):
         t = from_reference_inputs(q, ql, r1, rl, r2, rl, ctx.device)
         calls = 3 if nq > 1024 else 10
         want = cj.jump_score_cuda(*t, *JUMP_SCORES, JUMP)
-        auto = cj.kernel_layout(B, nq)
+        fit = [x for x in cj.LANE_CHOICES
+               if cj.kernel_layout(B, nq, x)[1] <= cj.max_strips()]
         rows = []
         # lanes per thread, 0: the kernel's own choice
-        for lanes in (0, *(x for x in cj.LANE_CHOICES
-                           if cj.kernel_layout(B, nq, x)[1] <= 64)):
+        for lanes in (0, *fit):
             fn = lambda: cj.jump_score_cuda(*t, *JUMP_SCORES, JUMP,
                                             lanes=lanes)
             if not torch.equal(fn(), want):
@@ -345,16 +367,33 @@ def bench_jump_layouts(ctx):
                                      f"{(B, nq, nr)}")
             rows.append({"lanes": lanes,
                          "warps_per_row": cj.kernel_layout(B, nq, lanes)[1],
-                         "ms": _event_ms(fn, calls)})
+                         **_event_ms(fn, calls, loops)})
+        bounded = {}
+        for rounds in BOUNDED_ROUNDS:
+            want_b, want_f = cj.jump_score_flagged_cuda(
+                *t, *JUMP_SCORES, JUMP, rounds)
+            bounded[f"bounded_k{rounds}"] = brows = []
+            for lanes in (0, *fit):
+                L, warps, smem = cj.bounded_kernel_layout(B, nq, rounds,
+                                                          lanes)
+                if L == 0 or smem > cj.max_shared_bytes():
+                    continue
+                fn = lambda: cj.jump_score_flagged_cuda(
+                    *t, *JUMP_SCORES, JUMP, rounds, lanes=lanes)
+                got_b, got_f = fn()
+                if not (torch.equal(got_b, want_b)
+                        and torch.equal(got_f, want_f)):
+                    raise AssertionError(
+                        f"bounded, {lanes} lanes a thread differ at "
+                        f"{(B, nq, nr)}, K={rounds}")
+                brows.append({"lanes": lanes, "lanes_used": L,
+                              "warps_per_row": warps, "shared_bytes": smem,
+                              **_event_ms(fn, calls, loops)})
         cj.raise_on_kernel_error()
-        old = lambda: cj.jump_score_flagged_cuda(*t, *JUMP_SCORES, JUMP, 30)
-        if not torch.equal(old()[0], want):
-            raise AssertionError(f"block-barrier kernel differs at "
-                                 f"{(B, nq, nr)}")
         _record(ctx, "jump_score_cuda_layouts", f"B={B},q={nq},refs=2x{nr}",
                 {"timed_by": "cuda events", "iters": calls},
-                auto_layout=list(auto), layouts=rows,
-                block_barrier_ms=_event_ms(old, calls))
+                auto_layout=list(cj.kernel_layout(B, nq)), layouts=rows,
+                **bounded)
 
 
 def _split_inputs(ctx):
@@ -560,6 +599,10 @@ def main(argv=None) -> int:
     ap.add_argument("--router-shape", type=_shape(2), default=(47, 2),
                     metavar="N,T")
     ap.add_argument("--matmul-n", type=int, default=2048)
+    ap.add_argument("--layout-bucket", type=_shape(3), default=None,
+                    metavar="B,Q,R", help="jump_layouts: this bucket only")
+    ap.add_argument("--layout-loops", type=int, default=3,
+                    help="jump_layouts: timed loops a layout")
     args = ap.parse_args(argv)
 
     import torch

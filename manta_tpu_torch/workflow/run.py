@@ -16,8 +16,10 @@ by the module's own line numbers, only in:
   ``cuda_present`` (new); ``resolve_device`` (new) picks the torch
   device of every device mode and raises for CUDA without a CUDA
   device;
-- :170 ``run_workflow`` takes ``device``; :203 resolves it; :208 loads
-  the native core through ``manta_tpu_torch.native_core`` first;
+- :170 ``run_workflow`` takes ``device`` and ``jump_scorer`` (a contig
+  scorer of the caller's own, e.g. the mesh-sharded one); :203 resolves
+  them; :208 loads the native core through
+  ``manta_tpu_torch.native_core`` first;
 - :223 the log prefix is ``[manta-tpu-torch]``;
 - :464-484 phase 2 hands ``device`` to the refiner and the scorer;
 - :1254 and :1274-1285 the CLI description and --device-scoring help;
@@ -192,13 +194,18 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
                  stop_after: str | None = None,
                  advanced: dict | None = None,
                  verbose: bool = True,
-                 device=None):
+                 device=None,
+                 jump_scorer=None):
     """Run phases 0-2 and write the results tree under ``run_dir``.
 
     ``device``: the torch device of contig jump scoring and, for
     'exact' and 'mxu', of the split scan when device scoring is on
     (None means CUDA; ``"cpu"`` runs the plain PyTorch forms). Every
-    other argument is that of the JAX package's ``workflow.run``."""
+    other argument is that of the JAX package's ``workflow.run``.
+    ``jump_scorer``: with device scoring on, a contig scorer of the
+    caller's own in place of the bucketed scorer on ``device`` (a
+    callable from jobs to int32 scores, e.g. the mesh-sharded one of
+    ``parallel.mesh_scoring``)."""
     # advanced defaults tier (reference: configManta.py.ini values
     # parsed by configureUtil.py; see workflow/config_defaults.ini)
     adv = dict(ADVANCED_DEFAULTS)
@@ -237,6 +244,10 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     # score-only batch is the host fallback (both are bit-exact vs the
     # traceback aligner, so this is purely a performance choice)
     jump_backend = "device" if device_scoring else "native"
+    if jump_scorer is not None:
+        if not device_scoring:
+            raise ValueError("jump_scorer needs device scoring on")
+        jump_backend = jump_scorer
 
     from ..native_core import load as load_native_core
     load_native_core()

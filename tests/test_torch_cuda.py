@@ -282,12 +282,114 @@ def test_bounded_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         cuda_jumpscore.jump_score_flagged_cuda(t[0].long(), *t[1:], *ARGS, 3)
     with pytest.raises(ValueError, match="prefix_rounds"):
         cuda_jumpscore.jump_score_flagged_cuda(*t, *ARGS, 0)
-    wide = torch.ones((1, 17408), dtype=torch.int32, device=cuda)
+    wide = torch.ones((1, cuda_jumpscore.max_query_width() + 1),
+                      dtype=torch.int32, device=cuda)
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="limit"):
         cuda_jumpscore.jump_score_flagged_cuda(wide, one, wide[:, :8], one,
                                                wide[:, :8], one, *ARGS, 3)
+    with pytest.raises(ValueError, match="lanes"):
+        cuda_jumpscore.jump_score_flagged_cuda(*t, *ARGS, 3, lanes=4)
+    # a window of 1024 lanes on a query of several warps: the ring does
+    # not fit a block's shared memory at any layout
+    assert cuda_jumpscore.bounded_kernel_layout(2, 2048, 10) == (0, 0, 0)
+    two = torch.ones((2, 2048), dtype=torch.int32, device=cuda)
+    ones = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_jumpscore.jump_score_flagged_cuda(
+            two, ones, two[:, :8].contiguous(), ones,
+            two[:, :8].contiguous(), ones, *ARGS, 10)
     assert cuda_jumpscore.KERNEL_LAUNCHES == before
+
+
+def _flagged_equals_plain(t, rounds, **kw):
+    nq, nr1, nr2 = t[0].shape[1], t[2].shape[1], t[4].shape[1]
+    best, flag = cuda_jumpscore.jump_score_flagged_cuda(*t, *ARGS, rounds,
+                                                        **kw)
+    p_best, p_flag = dj.batched_jump_score_flagged(*t, *ARGS, nq, nr1, nr2,
+                                                   rounds)
+    assert torch.equal(best, p_best), (rounds, kw)
+    assert torch.equal(flag, p_flag), (rounds, kw)
+    cuda_jumpscore.raise_on_kernel_error()
+    return flag
+
+
+@pytest.mark.parametrize("rounds", (1, 3, 5))
+@pytest.mark.parametrize("lanes", cuda_jumpscore.LANE_CHOICES)
+@pytest.mark.parametrize("over", (0, 1), ids=("fits", "one_more"))
+def test_bounded_kernel_widths_at_a_warps_edge(cuda, lanes, over, rounds):
+    """nq + 1 = 32 * lanes lanes fill one warp exactly; one lane more
+    takes a second warp, whose only lane reads its whole window from the
+    strip below."""
+    nq = 32 * lanes - 1 + over
+    rng = np.random.default_rng(lanes + over)
+    jobs = _bounded_jobs(rng, 4, nq, 2 * nq, rounds)
+    t = dj.from_reference_inputs(*_padded(jobs, len(jobs) + 1, nq, 2 * nq),
+                                 cuda)
+    got = cuda_jumpscore.bounded_kernel_layout(len(jobs) + 1, nq, rounds,
+                                               lanes)
+    assert got[:2] == (lanes, 1 + over)
+    assert 0 < got[2] <= cuda_jumpscore.max_shared_bytes()
+    for kw in ({}, {"lanes": lanes}):
+        flag = _flagged_equals_plain(t, rounds, **kw)
+    assert flag.any() and not flag.all()
+
+
+@pytest.mark.parametrize("rounds", (2, 3, 5, 7))
+@pytest.mark.parametrize("lanes", cuda_jumpscore.LANE_CHOICES)
+@pytest.mark.parametrize("nq", (530, 1500))
+def test_bounded_kernel_every_layout_across_strips(cuda, lanes, nq, rounds):
+    """Two widths through every lanes-per-thread choice, from 1 warp a
+    row to 16, windows from shorter than a thread's lanes to longer than
+    a strip (2 * 128 > 96 lanes at 3 lanes per thread): a layout changes
+    the time, never the score or the flag. Rows of many lengths, so some
+    warps of a row lie wholly above its query end."""
+    rng = np.random.default_rng(5)
+    jobs = _bounded_jobs(rng, 12, nq, 700, rounds) + _jobs(rng, 5, 60, 700)
+    t = dj.from_reference_inputs(*_padded(jobs, len(jobs) + 2, nq, 700),
+                                 cuda)
+    flag = _flagged_equals_plain(t, rounds, lanes=lanes)
+    assert flag.any() and not flag.all()
+
+
+def test_wait_polls_are_counted_for_rows_of_several_warps(cuda):
+    """A row of several warps leaves its wait polls in the scratch
+    header, which ``raise_on_kernel_error`` adds to ``WAIT_POLLS``; a row
+    of one warp waits for nobody and adds none."""
+    rng = np.random.default_rng(11)
+    jobs = _bounded_jobs(rng, 8, 1500, 700, 3)
+    t = dj.from_reference_inputs(*_padded(jobs, len(jobs), 1500, 700), cuda)
+    cuda_jumpscore.raise_on_kernel_error()
+    before = dict(cuda_jumpscore.WAIT_POLLS)
+    for _ in range(3):
+        _flagged_equals_plain(t, 3, lanes=3)
+    cuda_jumpscore.raise_on_kernel_error()
+    after = dict(cuda_jumpscore.WAIT_POLLS)
+    # an upper strip starts a step behind the strip below: it polls
+    assert after["boundary"] > before["boundary"]
+    assert after["tail"] >= before["tail"]
+    short = dj.from_reference_inputs(
+        *_padded(_jobs(rng, 4, 60, 200), 4, 60, 200), cuda)
+    dj._score(*short, SCORES, JUMP)
+    cuda_jumpscore.raise_on_kernel_error()
+    assert cuda_jumpscore.WAIT_POLLS == after
+
+
+def test_bounded_kernel_layout_by_batch(cuda):
+    """The bounded kernel's own layout: 5 lanes per thread for a window
+    under 32 lanes; from there on the fewest lanes from 9 on for which a
+    row is one warp, and the most lanes where none is; always one whose
+    ring fits a block's shared memory."""
+    got = [cuda_jumpscore.bounded_kernel_layout(B, nq, K)[:2]
+           for B, nq, K in ((256, 128, 3), (8, 256, 3), (64, 512, 3),
+                            (64, 512, 5), (8, 4096, 3), (8, 4096, 5),
+                            (8, 8192, 7))]
+    assert got == [(5, 1), (5, 2), (5, 4), (17, 1), (5, 26), (17, 8),
+                   (17, 16)]
+    for B, nq, K in ((8, 8192, 7), (2, 600, 9), (64, 512, 5)):
+        lanes, warps, smem = cuda_jumpscore.bounded_kernel_layout(B, nq, K)
+        assert lanes in cuda_jumpscore.LANE_CHOICES and warps <= 64
+        assert 0 < smem <= cuda_jumpscore.max_shared_bytes()
 
 
 # ---- the split scan (csrc/split_score.cu)
@@ -483,3 +585,46 @@ def test_demo_exact_j2_launches_both_kernels_in_workers(cuda, tmp_path,
                                 "somaticSV.vcf.gz"), "rt") as f:
         want = [ln for ln in f if not ln.startswith("#")]
     assert got == want
+
+
+# ---- the further entry point (manta_tpu_torch/graft_entry.py)
+
+def test_entry_launches_the_split_kernel(cuda):
+    """entry() on the card: one launch of the split kernel, bit-equal to
+    the plain form on the same tensors."""
+    from manta_tpu_torch import graft_entry
+    fn, args = graft_entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    before = cuda_splitscore.KERNEL_LAUNCHES["split_score"]
+    best, pos = fn(*args)
+    assert cuda_splitscore.KERNEL_LAUNCHES["split_score"] == before + 1
+    luts = [torch.from_numpy(a).to(cuda) for a in ds.make_luts(0.0)]
+    p_best, p_pos = ds.batched_split_score(*args, 50, *luts,
+                                           args[2].shape[1])
+    assert torch.equal(best, p_best) and torch.equal(pos, p_pos)
+
+
+def test_dryrun_multichip_on_one_card(cuda, demo_fasta):
+    """All seven stages on a mesh of one CUDA device, in a fresh process
+    (stage 6 forks): the jump kernel launched in stages 2 and 5, the
+    split kernel in stages 1 and 4, by the wrappers' own counts."""
+    import json
+    repo, _demo, _fasta = demo_fasta
+    run = subprocess.run(
+        [sys.executable, "-c",
+         "from manta_tpu_torch.graft_entry import dryrun_multichip; "
+         "dryrun_multichip(1)"],
+        capture_output=True, text=True, cwd=repo, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr[-3000:]
+    lines = run.stdout.splitlines()
+    assert sum(ln.startswith("dryrun_multichip ok: 1 devices")
+               for ln in lines) == 1
+    counted = next(ln for ln in lines
+                   if ln.startswith("dryrun_multichip launches: "))
+    stages = {name.split()[0]: c for name, c in
+              json.loads(counted.split(": ", 1)[1]).items()}
+    assert sorted(stages) == list("1234567")
+    assert stages["2"]["jump_score"] > 0 and stages["5"]["jump_score"] > 0
+    assert stages["1"]["split_score"] > 0 and stages["4"]["split_score"] > 0
+    assert stages["7"] == {"jump_score": 0, "jump_score_bounded": 0,
+                           "split_score": 0}

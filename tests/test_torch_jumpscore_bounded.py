@@ -227,3 +227,121 @@ def test_cuda_wrappers_raise_on_cpu_tensor():
     with pytest.raises(ValueError, match="prefix_rounds"):
         cuda_jumpscore.jump_score_flagged_cuda(*t, *SCORES, JUMP, 0)
     assert cuda_jumpscore.KERNEL_LAUNCHES == before
+
+
+# ---- the plain model of the CUDA kernel's exchange
+# (batched_jump_score_flagged_strips): the chain cut at thread and strip
+# boundaries as csrc/jump_systolic.cuh cuts it
+
+def _exchange_jobs():
+    """Rows that flag (junction insertions longer than 2 x 32 lanes and
+    2 x 8 lanes), rows that cannot (queries shorter than the shortest
+    window), random rows and a pad row."""
+    rng = np.random.default_rng(77)
+
+    def seq(n):
+        return bytes(b"ACGT"[i] for i in rng.integers(0, 4, n))
+
+    def mk(ins_len):
+        left, right = seq(25), seq(25)
+        return (left + seq(ins_len) + right, seq(12) + left, right + seq(12))
+
+    jobs = [mk(0), mk(70), mk(20), mk(3), (seq(2), seq(30), seq(30)),
+            (seq(1), seq(30), seq(30)), (seq(33), seq(37), seq(9)),
+            (b"\x01", b"\x02", b"\x02")]
+    nq = max(len(j[0]) for j in jobs)
+    return _padded(jobs, nq, 37), nq, 37
+
+
+_EXCHANGE_WANT = {}
+
+
+def _exchange_want(rounds):
+    """(arrays, tail, best, flag) of the port's plain flagged form, held
+    here against Pallas in interpret mode once per K."""
+    if rounds not in _EXCHANGE_WANT:
+        arrays, nq, nr = _exchange_jobs()
+        tail = (*SCORES, JUMP, nq, nr, nr)
+        best, flag = dj.batched_jump_score_flagged(
+            *dj.from_reference_inputs(*arrays, "cpu"), *tail, rounds)
+        ref_best, ref_flag = pallas_jump_score_flagged(
+            *arrays, *tail, rounds, interpret=True)
+        np.testing.assert_array_equal(best.numpy(), np.asarray(ref_best))
+        np.testing.assert_array_equal(flag.numpy(), np.asarray(ref_flag))
+        _EXCHANGE_WANT[rounds] = (arrays, tail, best, flag)
+    return _EXCHANGE_WANT[rounds]
+
+
+@pytest.mark.parametrize("threads", (1, 32, 33, "row", "row+1"), ids=str)
+@pytest.mark.parametrize("rounds", (1, 3, 5))
+@pytest.mark.parametrize("lanes", (3, 5, 9, 17))
+def test_exchange_model_matches_plain_and_pallas(lanes, rounds, threads):
+    """Thread widths 3, 5, 9, 17, windows W = 2, 8, 32, strips of 1, 32
+    and 33 threads, of the whole row and of one lane more: score and
+    flag equal the plain flagged form and Pallas in interpret mode
+    exactly. Sources at or under BAD stay un-floored in the model, as in
+    the kernel, and raise neither window."""
+    arrays, tail, want_best, want_flag = _exchange_want(rounds)
+    nq = tail[6]
+    if threads == "row":
+        threads = -(-(nq + 1) // lanes)
+    elif threads == "row+1":
+        threads = -(-(nq + 2) // lanes)
+    t = dj.from_reference_inputs(*arrays, "cpu")
+    best, flag = dj.batched_jump_score_flagged_strips(*t, *tail, rounds,
+                                                      lanes, threads)
+    assert best.dtype == torch.int32 and flag.dtype == torch.int32
+    np.testing.assert_array_equal(best.numpy(), want_best.numpy())
+    np.testing.assert_array_equal(flag.numpy(), want_flag.numpy())
+    # rows that flag and rows that cannot are both present
+    assert want_flag[1] == 1 and want_flag[-1] == 0
+    assert not want_flag[4:6].any() or rounds == 1
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_exchange_model_on_the_flagged_cases(case):
+    """The cases of the flagged form above through one uneven cut (5
+    lanes a thread, 7 threads a strip) at K = 3."""
+    jobs, nq, nr = CASES[case]()
+    arrays = _padded(jobs, nq, nr)
+    tail = (*SCORES, JUMP, nq, nr, nr)
+    t = dj.from_reference_inputs(*arrays, "cpu")
+    best, flag = dj.batched_jump_score_flagged_strips(*t, *tail, 3, 5, 7)
+    want_best, want_flag = dj.batched_jump_score_flagged(*t, *tail, 3)
+    np.testing.assert_array_equal(best.numpy(), want_best.numpy())
+    np.testing.assert_array_equal(flag.numpy(), want_flag.numpy())
+
+
+def test_exchange_model_sentinel_sources_raise_no_window():
+    """A source at or under BAD is NEG in the plain form and f -
+    extend*k in the kernel and its model: on sources no DP made, with
+    many at and under BAD, both windows floored at BAD are the same
+    numbers, so neither the insert value nor the flag can differ."""
+    rng = np.random.default_rng(11)
+    B, width, extend, w = 6, 90, -1, 8
+    f = rng.integers(-300, 300, (B, width)).astype(np.int64)
+    f[rng.random((B, width)) < 0.5] = dj.BAD - rng.integers(0, 50)
+    k = np.arange(width, dtype=np.int64)
+    for floor in (True, False):
+        g = f - extend * k
+        if floor:
+            g = np.where(f <= dj.BAD, dj.NEG, g)
+        out = []
+        for win in (w, 2 * w):
+            m = np.stack([g[:, max(0, q - win + 1):q + 1].max(axis=1)
+                          for q in range(width)], axis=1)
+            out.append(np.maximum(m + extend * (k + 1), dj.BAD))
+        if floor:
+            want = out
+        else:
+            np.testing.assert_array_equal(out[0], want[0])
+            np.testing.assert_array_equal(out[1], want[1])
+
+
+def test_exchange_model_rejects_bad_cuts():
+    arrays, tail, _b, _f = _exchange_want(3)
+    t = dj.from_reference_inputs(*arrays, "cpu")
+    with pytest.raises(ValueError, match="lanes"):
+        dj.batched_jump_score_flagged_strips(*t, *tail, 3, 0, 4)
+    with pytest.raises(ValueError, match="prefix_rounds"):
+        dj.batched_jump_score_flagged_strips(*t, *tail, 0, 3, 4)

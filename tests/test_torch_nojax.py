@@ -92,6 +92,12 @@ def test_every_module_imports_without_jax():
                  "manta_tpu_torch.scoring.scorer",
                  "manta_tpu_torch.core.chromdepth",
                  "manta_tpu_torch.parallel.forkpool",
+                 "manta_tpu_torch.parallel.mesh",
+                 "manta_tpu_torch.parallel.scan_parallel",
+                 "manta_tpu_torch.parallel.mesh_scoring",
+                 "manta_tpu_torch.parallel.phase1_mesh",
+                 "manta_tpu_torch.parallel.distributed",
+                 "manta_tpu_torch.graft_entry",
                  "manta_tpu_torch.workflow.run",
                  "manta_tpu_torch.native_core"):
         assert name in out["modules"]

@@ -39,6 +39,11 @@ COPIED = (
     "workflow.config",
 )
 
+# the JAX modules of manta_tpu/parallel/ that the port has as torch twins
+PARALLEL_TWINS = ("parallel.mesh", "parallel.scan_parallel",
+                  "parallel.mesh_scoring", "parallel.phase1_mesh",
+                  "parallel.distributed")
+
 _PRELUDE = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -122,9 +127,46 @@ def test_every_module_imports_without_the_jax_package():
     out = json.loads(_run(_IMPORT_ALL)[-1])
     assert out["refused"]
     assert out["foreign"] == []
-    for name in COPIED + ("tools.device_timing", "workflow.run",
-                          "align.device_jumpscore", "scoring.device_scan"):
+    for name in COPIED + PARALLEL_TWINS + (
+            "tools.device_timing", "workflow.run", "align.device_jumpscore",
+            "scoring.device_scan", "graft_entry"):
         assert f"manta_tpu_torch.{name}" in out["modules"]
+
+
+_DRYRUN = r"""
+from manta_tpu_torch.graft_entry import dryrun_multichip, entry
+stages = dryrun_multichip(2, device="cpu")
+fn, args = entry(device="cpu")
+best, pos = fn(*args)
+print(json.dumps({"stages": sorted(stages), "rows": int(best.shape[0]),
+                  "foreign": foreign()}))
+"""
+
+
+def test_dry_run_on_cpu_shards_without_the_jax_package():
+    """The further entry point, all seven stages on 2 CPU shards, and
+    entry(), in a process that can import neither JAX nor manta_tpu."""
+    lines = _run(_DRYRUN)
+    out = json.loads(lines[-1])
+    assert out["foreign"] == [] and out["rows"] == 64
+    assert len(out["stages"]) == 7
+    assert any(ln.startswith("dryrun_multichip ok: 2 devices")
+               for ln in lines)
+
+
+@pytest.mark.parametrize("name", ("mesh", "scan_parallel", "mesh_scoring",
+                                  "phase1_mesh", "distributed"))
+def test_parallel_twin_has_the_functions_of_its_counterpart(name):
+    """Every public function of a JAX module of manta_tpu/parallel/ has
+    its twin of the same name in the port, defined in the port."""
+    ours = importlib.import_module(f"manta_tpu_torch.parallel.{name}")
+    theirs = importlib.import_module(f"manta_tpu.parallel.{name}")
+    want = {n for n, v in vars(theirs).items()
+            if inspect.isfunction(v) and not n.startswith("_")
+            and v.__module__ == theirs.__name__}
+    assert want and want <= _public(ours), want - _public(ours)
+    for attr in want:
+        assert getattr(ours, attr).__module__ == ours.__name__
 
 
 def _oracle():
