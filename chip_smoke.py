@@ -40,13 +40,24 @@ run (manta_tpu_torch.graft_entry.dryrun_multichip):
 5. demo: the tumor/normal demo through the port's workflow with
    scoring off, jump, exact and mxu on CUDA; the somatic VCF body
    equals the oracle's (byte for byte; mxu at call level);
-6. WGS-shaped: a seeded germline workload (benchmarks/wgs_workload.py,
-   in a subprocess) through the port's workflow with scoring off, jump,
+6. WGS-shaped: a seeded germline workload (python -m
+   manta_tpu_torch.tools.wgs_workload, in a subprocess) through the
+   port's workflow with scoring off, jump,
    exact and mxu; the diploid VCF bodies of off, jump and exact are
    identical and each device path launched its kernels; then exact at
    -j 2 through the CLI, whose body and chromosome depths equal the
    -j 1 runs'; the real contig jobs of the jump run go through the
    bounded kernel once more, for their flag count;
+6b. high-span contigs: the demo junction tiled 512 times at a fifth of
+   its depth with split-read evidence stripped (python -m
+   manta_tpu_torch.tools.stress_workload, in a subprocess: 1,157,120
+   reads, about three contigs a junction) through the workflow's command
+   line with scoring off, jump at the default edge chunk and jump at
+   MANTA_TPU_EDGE_CHUNK=256; the tumor VCF bodies are identical, each
+   jump run scored at least 1,000 contig jobs, every one of its
+   dispatches through the jump kernel by the child's own count; and a
+   child that only imports torch and makes a CUDA context, for the
+   start-up a device run pays and 'off' does not;
 7. the timing entry point, python -m manta_tpu_torch.tools.device_timing
    --kernel all --json, in a subprocess: its records, and its launch
    counts (all three kernels launched);
@@ -56,7 +67,10 @@ run (manta_tpu_torch.graft_entry.dryrun_multichip):
    in stages 2 and 5 and the split kernel in stages 1 and 4 by the
    wrappers' own counts.
 
-Neither JAX nor the JAX package manta_tpu is imported anywhere. The
+Neither JAX nor the JAX package manta_tpu is imported anywhere: not in
+this process (checked at the end), and not in a child process, each of
+which starts behind a guard on sys.meta_path that refuses jax, jaxlib
+and manta_tpu before anything else is imported. The
 line before the card's holds, for every kernel, its launches on its
 path, its times and its bound: the least time the card could take, the
 larger of the bytes (each input once, each output once) over 3.35 TB/s
@@ -118,9 +132,19 @@ SPLIT_SHAPES = ((64, 256, 512), (512, 256, 512), (2048, 256, 1024),
 SPLIT_TYPICAL = 4            # a typical workflow call: ~93 pairs
 SPLIT_REPORTED = 1           # the index of the shape in the kernels line
 FLANK = 50
-# germline WGS-shaped workload: 2 x 8 Mb at 35x, about 5.6 M reads
-WGS_ARGS = ("--chroms", "2", "--mb", "8", "--depth", "35", "--seed", "7")
+# germline WGS-shaped workload: 2 x 4 Mb at 35x, 2,803,936 reads (cut
+# from 2 x 8 Mb by genome size, depth kept, to leave room for the
+# high-span phase)
+WGS_ARGS = ("--chroms", "2", "--mb", "4", "--depth", "35", "--seed", "7")
 TIMED_RUNS = 5
+# high-span contigs: the shape and size of the JAX package's record
+# (benchmarks/results/tpu_e2e_r05.json: 512 tiles, 1,157,120 reads, 2,048
+# graph edges, 1,024 contig jobs); (scoring, MANTA_TPU_EDGE_CHUNK) a run,
+# None for the workflow's default (24 with device scoring)
+HIGH_SPAN_TILES = 512
+HIGH_SPAN_READS = 1_157_120
+HIGH_SPAN_MIN_JOBS = 1000
+HIGH_SPAN_RUNS = (("off", None), ("jump", None), ("jump", 256))
 BOUNDED_ROUNDS = (3, 5)      # benchmarks/device_timing.py:359
 # the card's published peaks (NVIDIA's data sheet, H100 SXM, 700 W):
 # device memory rate, and float32 outside the tensor cores, which is
@@ -143,6 +167,40 @@ BOUNDED_OPS_PER_CELL = 29
 # operations per useful term of the split scan: base compare, two N
 # tests, two selects, add
 SPLIT_OPS_PER_TERM = 6
+
+
+# prepended to every child process's code: jax, jaxlib and manta_tpu
+# cannot be imported there, so a child that reaches them fails
+_GUARD = """\
+import sys
+
+
+class _RefuseJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "manta_tpu"):
+            raise ModuleNotFoundError(f"refused in a chip_smoke.py child: {name}")
+
+
+sys.meta_path.insert(0, _RefuseJax())
+"""
+CHILDREN = []                # the argv of every child process started
+
+
+def run_child(argv, env=None) -> subprocess.CompletedProcess:
+    """Run ``python <argv>`` (``-m module args`` or ``-c code args``)
+    from the checkout's root behind the guard, its output captured."""
+    kind, what, *rest = argv
+    if kind == "-m":
+        code = (_GUARD + "import runpy\n"
+                f"runpy.run_module({what!r}, run_name='__main__', "
+                "alter_sys=True)\n")
+    elif kind == "-c":
+        code = _GUARD + what
+    else:
+        raise ValueError(f"run_child takes -m or -c, not {kind!r}")
+    CHILDREN.append(argv)
+    return subprocess.run([sys.executable, "-c", code, *rest],
+                          capture_output=True, text=True, cwd=REPO, env=env)
 
 
 def phase(name: str) -> None:
@@ -898,6 +956,7 @@ def _reset_counts():
             launches[k] = 0
     dj.PLAIN_CALLS["cuda"] = 0
     ds.PLAIN_CALLS["cuda"] = 0
+    dj.DISPATCH_BUCKETS.clear()
     for stats in (dj.DISPATCH_STATS, SCAN_STATS, EXACT_COPIES):
         for k in stats:
             stats[k] = 0.0 if k in ("wall", "first_wall") else 0
@@ -1052,10 +1111,8 @@ def wgs_workload(device: str = "cuda", wgs_args=WGS_ARGS) -> dict:
     t0 = time.perf_counter()
     # a subprocess: the generator never shares a process that touched
     # CUDA; it inherits the native core's library path
-    gen = subprocess.run(
-        [sys.executable, os.path.join(REPO, "benchmarks", "wgs_workload.py"),
-         "--out", prefix, *wgs_args], capture_output=True, text=True,
-        cwd=REPO)
+    gen = run_child(["-m", "manta_tpu_torch.tools.wgs_workload", "--out",
+                     prefix, *wgs_args])
     if gen.returncode != 0:
         raise RuntimeError(f"workload generation failed:\n{gen.stdout}\n"
                            f"{gen.stderr}")
@@ -1121,11 +1178,10 @@ def wgs_workload(device: str = "cuda", wgs_args=WGS_ARGS) -> dict:
     # both kernels
     run_dir = os.path.join(work, "run_cli_j2")
     t0 = time.perf_counter()
-    cli = subprocess.run(
-        [sys.executable, "-m", "manta_tpu_torch.workflow.run", "--bam",
-         prefix + ".bam", "--reference", prefix + ".fa", "--run-dir",
-         run_dir, "-j", "2", "--device-scoring", "exact"],
-        capture_output=True, text=True, cwd=REPO)
+    cli = run_child(
+        ["-m", "manta_tpu_torch.workflow.run", "--bam", prefix + ".bam",
+         "--reference", prefix + ".fa", "--run-dir", run_dir, "-j", "2",
+         "--device-scoring", "exact"])
     wall = time.perf_counter() - t0
     if cli.returncode != 0:
         raise RuntimeError(f"workflow CLI -j 2 failed:\n{cli.stderr}")
@@ -1158,6 +1214,115 @@ def wgs_workload(device: str = "cuda", wgs_args=WGS_ARGS) -> dict:
     _flag_real_jobs(dispatches, counted["jump"]["dispatch"]["jobs"])
     return {"jump_score": counted["jump"]["jump"],
             "split_score": counted["exact"]["split"]}
+
+
+_STARTUP = """\
+import time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+print(f"{t1 - t0:.3f} {time.perf_counter() - t1:.3f}")
+"""
+_DISPATCH_LINE = re.compile(
+    r"device-dispatch pid=\d+: (\d+) calls, (\d+) jobs, (\d+) padded rows, "
+    r"([0-9.]+)s total, first ([0-9.]+)s \(incl\. kernel build\), (\d+) "
+    r"kernel launches; calls by bucket \(B, nq, nr1, nr2\): (\{.*\})")
+
+
+def high_span(card: str) -> dict:
+    """The high-spanning-contig shape through the workflow's command
+    line, in child processes: scoring off, then jump at the default edge
+    chunk and at 256. Returns the jump kernel's launches in each jump
+    run, by the child's own count (its device-dispatch exit line)."""
+    phase(f"high-span contigs: {HIGH_SPAN_TILES} demo tiles, depth 0.2, "
+          "no split-read evidence; scoring off, jump, jump at chunk 256")
+    work = os.path.join(WORK, "chip_smoke", "high_span")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    prefix = os.path.join(work, "h")
+    t0 = time.perf_counter()
+    gen = run_child(["-m", "manta_tpu_torch.tools.stress_workload",
+                     "--tiles", str(HIGH_SPAN_TILES), "--out", prefix,
+                     "--depth-frac", "0.2", "--strip-sa",
+                     "--demo-fasta", demo_fasta()])
+    if gen.returncode != 0:
+        raise RuntimeError(f"high-span generation failed:\n{gen.stdout}\n"
+                           f"{gen.stderr}")
+    reads = int(re.search(r": (\d+) reads across", gen.stdout).group(1))
+    if reads != HIGH_SPAN_READS:
+        raise AssertionError(f"{reads} reads generated, wanted "
+                             f"{HIGH_SPAN_READS}")
+    print(f"{gen.stdout.strip()} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    bodies, launches = {}, {}
+    for mode, chunk in HIGH_SPAN_RUNS:
+        name = f"{mode}" + (f"_chunk{chunk}" if chunk else "")
+        run_dir = os.path.join(work, f"run_{name}")
+        env = dict(os.environ)
+        env.pop("MANTA_TPU_EDGE_CHUNK", None)
+        if chunk:
+            env["MANTA_TPU_EDGE_CHUNK"] = str(chunk)
+        t0 = time.perf_counter()
+        cli = run_child(["-m", "manta_tpu_torch.workflow.run", "--tumor-bam",
+                         prefix + ".bam", "--reference", prefix + ".fa",
+                         "--run-dir", run_dir, "--exome", "-j", "1",
+                         "--device-scoring", mode], env=env)
+        wall = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise RuntimeError(f"high-span {name} failed:\n"
+                               f"{cli.stderr[-3000:]}")
+        bodies[name] = _records(os.path.join(run_dir, "results", "variants",
+                                             "tumorSV.vcf.gz"))
+        with open(os.path.join(run_dir, "workspace",
+                               "workflow_log.txt")) as f:
+            edges = re.findall(r"processed (\d+) graph edges", f.read())
+        dispatch = _DISPATCH_LINE.findall(cli.stderr)
+        line = (f"{name:>13} -j 1: wall {wall:.2f} s, {edges[-1]} graph "
+                f"edges, {len(bodies[name])} tumor records; "
+                f"{_phase_walls(run_dir)}")
+        if mode == "off":
+            if dispatch or "split-scan pid=" in cli.stderr:
+                raise AssertionError("high-span off used the device")
+            print(f"{line}; no device work", flush=True)
+            continue
+        if len(dispatch) != 1:
+            raise AssertionError(f"high-span {name}: {len(dispatch)} "
+                                 "device-dispatch lines, wanted 1:\n"
+                                 f"{cli.stderr[-3000:]}")
+        calls, jobs, rows, d_wall, first, k1, buckets = dispatch[0]
+        launches[name] = int(k1)
+        print(f"{line}; {calls} dispatches, {jobs} contig jobs, {rows} "
+              f"padded rows, dispatch wall {d_wall} s (first {first} s), "
+              f"{k1} jump kernel launches; dispatches by bucket "
+              f"(B, nq, nr1, nr2): {buckets}", flush=True)
+        if int(jobs) < HIGH_SPAN_MIN_JOBS:
+            raise AssertionError(f"high-span {name}: {jobs} contig jobs, "
+                                 f"wanted at least {HIGH_SPAN_MIN_JOBS}")
+        if int(k1) <= 0 or int(k1) != int(calls):
+            raise AssertionError(f"high-span {name}: {k1} jump kernel "
+                                 f"launches for {calls} dispatches")
+    # what a jump run pays outside the workflow's logged phases: 'off'
+    # never imports torch
+    t0 = time.perf_counter()
+    start = run_child(["-c", _STARTUP])
+    if start.returncode != 0:
+        raise RuntimeError(f"start-up child failed:\n{start.stderr[-3000:]}")
+    imp, ctx = start.stdout.split()
+    print(f"a child that imports torch and makes a CUDA context: import "
+          f"{imp} s, context {ctx} s, the child's wall "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    first = bodies["off"]
+    for name, body in bodies.items():
+        if body != first:
+            differ = sum(a != b for a, b in zip(body, first)) \
+                + abs(len(body) - len(first))
+            raise AssertionError(f"high-span: the tumorSV body of {name} "
+                                 f"differs from off's in {differ} records")
+    print(f"{card}; tumorSV body identical: {', '.join(bodies)} "
+          f"({len(first)} records)", flush=True)
+    return launches
 
 
 def _flag_real_jobs(dispatches, n_jobs: int) -> None:
@@ -1198,10 +1363,8 @@ def device_timing() -> dict:
     if os.path.exists(out):
         os.remove(out)
     t0 = time.perf_counter()
-    run = subprocess.run(
-        [sys.executable, "-m", "manta_tpu_torch.tools.device_timing",
-         "--kernel", "all", "--json", out],
-        capture_output=True, text=True, cwd=REPO)
+    run = run_child(["-m", "manta_tpu_torch.tools.device_timing",
+                     "--kernel", "all", "--json", out])
     if run.returncode != 0:
         raise RuntimeError(f"device_timing failed ({run.returncode}):\n"
                            f"{run.stdout}\n{run.stderr[-3000:]}")
@@ -1256,10 +1419,9 @@ def dry_run() -> dict:
           f"{tuple(example[2].shape)} targets on {best.device} == plain "
           "form (tolerance: bit-equal), 1 launch", flush=True)
     t0 = time.perf_counter()
-    run = subprocess.run(
-        [sys.executable, "-c",
-         "from manta_tpu_torch.graft_entry import dryrun_multichip; "
-         "dryrun_multichip(1)"], capture_output=True, text=True, cwd=REPO)
+    run = run_child(["-c",
+                     "from manta_tpu_torch.graft_entry import "
+                     "dryrun_multichip\ndryrun_multichip(1)\n"])
     if run.returncode != 0:
         raise RuntimeError(f"dryrun_multichip(1) failed ({run.returncode}):\n"
                            f"{run.stdout}\n{run.stderr[-3000:]}")
@@ -1299,6 +1461,7 @@ def main() -> None:
                 "split_score": check_split_kernel(card)}
     demo_workflow()
     launches = wgs_workload()
+    high_span_launches = high_span(card)
     launches["jump_score_bounded"] = device_timing()["jump_score_bounded"]
     dry_launches = dry_run()
     foreign = sorted(m for m in sys.modules
@@ -1307,14 +1470,21 @@ def main() -> None:
         raise AssertionError(f"JAX or the JAX package was imported: "
                              f"{foreign[:8]}")
     import torch
-    print(f"\nno jax, jaxlib or manta_tpu module imported; total "
-          f"{time.perf_counter() - t_start:.1f} s")
+    print(f"\nno jax, jaxlib or manta_tpu module imported in this process "
+          f"and in its {len(CHILDREN)} child processes (each behind the "
+          f"guard); total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
         # the further entry point's own launches, each wrapper's count
         # as the dry run's process read it
         "launches_dry_run": dry_launches[name],
+        # the high-span jump runs, default edge chunk and 256, each
+        # counted in its own process
+        **({"launches_high_span": high_span_launches["jump"],
+            "launches_high_span_chunk256":
+                high_span_launches["jump_chunk256"]}
+           if name == "jump_score" else {}),
         **{key: measured[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "bound_ms_int32") if key in measured[name]}}

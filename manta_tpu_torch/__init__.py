@@ -4,9 +4,11 @@ A second package beside ``manta_tpu``, and independent of it: it imports
 ``torch``, never ``jax``, and nothing of ``manta_tpu``. The host layers
 (``_native``, ``core``, ``io``, ``align.aligners``, ``assembly``,
 ``scan``, ``graph``, ``candidates``, ``scoring``, ``format``,
-``workflow.tasks|stats|postprocess|config``) are the port's own copies
-of the JAX package's JAX-free modules, under the same names; they load
-the same native core (``native/libmanta_core.so``).
+``workflow.tasks|stats|postprocess|config``, ``options``, and the
+command-line tools ``tools.test_assembler|workers|convert_inversion|
+denovo_scoring|svloci``) are the port's own copies of the JAX package's
+JAX-free modules, under the same names; they load the same native core
+(``native/libmanta_core.so``).
 
 What replaces the JAX package's device code:
 
@@ -40,6 +42,10 @@ What replaces the JAX package's device code:
 - ``tools.device_timing``: kernel timing on the card
   (``python -m manta_tpu_torch.tools.device_timing``), the counterpart
   of ``benchmarks/device_timing.py``;
+- ``tools.wgs_workload``, ``tools.stress_workload``: the generators of
+  the WGS-shaped and the high-spanning-contig workloads, byte for byte
+  those of ``benchmarks/wgs_workload.py`` and
+  ``benchmarks/stress_workload.py``;
 - ``native_core``: loads the native core on hosts that lack
   ``libdeflate``;
 - ``_build``: builds the CUDA and C sources under ``csrc/`` at first

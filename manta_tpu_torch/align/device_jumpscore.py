@@ -557,6 +557,8 @@ def pad_jobs(jobs, rows: int):
 # device-dispatch ..." stderr line
 DISPATCH_STATS = {"calls": 0, "jobs": 0, "rows": 0, "wall": 0.0,
                   "first_wall": 0.0}
+# calls by padded bucket shape (B, nq, nr1, nr2)
+DISPATCH_BUCKETS: dict[tuple[int, int, int, int], int] = {}
 _REPORT_REGISTERED = False
 
 
@@ -575,9 +577,11 @@ def _register_dispatch_report():
         if s["calls"]:
             print(f"[manta-tpu-torch] device-dispatch pid={_os.getpid()}: "
                   f"{s['calls']} calls, {s['jobs']} jobs, "
-                  f"{s['rows']} padded rows, {s['wall']:.2f}s total, "
-                  f"first {s['first_wall']:.2f}s (incl. kernel build), "
-                  f"{KERNEL_LAUNCHES['jump_score']} kernel launches",
+                  f"{s['rows']} padded rows, {s['wall']:.4f}s total, "
+                  f"first {s['first_wall']:.4f}s (incl. kernel build), "
+                  f"{KERNEL_LAUNCHES['jump_score']} kernel launches; "
+                  f"calls by bucket (B, nq, nr1, nr2): "
+                  f"{dict(sorted(DISPATCH_BUCKETS.items()))}",
                   file=_sys.stderr, flush=True)
             s["calls"] = 0        # once per process
     at_process_exit(report)
@@ -612,6 +616,8 @@ def make_bucketed_scorer(scores, jump_score: int, device):
         s["jobs"] += B
         s["rows"] += Bp
         s["wall"] += dt
+        shape = (Bp, *(int(t[i].shape[1]) for i in (0, 2, 4)))
+        DISPATCH_BUCKETS[shape] = DISPATCH_BUCKETS.get(shape, 0) + 1
         return res
 
     return scorer

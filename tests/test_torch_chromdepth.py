@@ -24,13 +24,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def wgs_two_chroms(tmp_path_factory):
-    """A seeded germline workload with two chromosomes
-    (benchmarks/wgs_workload.py), so the fan-out has several jobs."""
+    """A seeded germline workload with two chromosomes (the port's own
+    generator, python -m manta_tpu_torch.tools.wgs_workload), so the
+    fan-out has several jobs."""
     out = str(tmp_path_factory.mktemp("wgs2") / "w")
     subprocess.run(
-        [sys.executable, os.path.join(REPO, "benchmarks", "wgs_workload.py"),
+        [sys.executable, "-m", "manta_tpu_torch.tools.wgs_workload",
          "--out", out, "--chroms", "2", "--mb", "1", "--depth", "10",
-         "--seed", "7"], check=True, capture_output=True, timeout=300)
+         "--seed", "7"], check=True, capture_output=True, timeout=300,
+        cwd=REPO)
     return out
 
 

@@ -37,6 +37,9 @@ COPIED = (
     "format.tabix", "format.vcfwriter",
     "workflow.tasks", "workflow.stats", "workflow.postprocess",
     "workflow.config",
+    "assembly.small_assembler", "options", "tools.test_assembler",
+    "tools.workers", "tools.convert_inversion", "tools.denovo_scoring",
+    "tools.svloci",
 )
 
 # the JAX modules of manta_tpu/parallel/ that the port has as torch twins

@@ -76,14 +76,16 @@ def test_cli_demo_matches_oracle(tmp_path, demo_fasta, normal_bam,
 
 @pytest.fixture(scope="module")
 def wgs_small(tmp_path_factory):
-    """A seeded germline WGS-shaped workload (benchmarks/wgs_workload.py)
-    small enough for the CPU, yet with spanning junctions that have
-    several contigs, so phase 2 calls the jump scorer."""
+    """A seeded germline WGS-shaped workload (the port's own generator,
+    python -m manta_tpu_torch.tools.wgs_workload) small enough for the
+    CPU, yet with spanning junctions that have several contigs, so
+    phase 2 calls the jump scorer."""
     out = str(tmp_path_factory.mktemp("wgs") / "w")
     subprocess.run(
-        [sys.executable, os.path.join(REPO, "benchmarks", "wgs_workload.py"),
+        [sys.executable, "-m", "manta_tpu_torch.tools.wgs_workload",
          "--out", out, "--chroms", "1", "--mb", "2", "--depth", "20",
-         "--seed", "7"], check=True, capture_output=True, timeout=300)
+         "--seed", "7"], check=True, capture_output=True, timeout=300,
+        cwd=REPO)
     return out
 
 
