@@ -5,9 +5,11 @@
 
 Run from the root of a checkout. It drives the port's main paths,
 contig jump scoring (--device-scoring jump), the device split-read scan
-(--device-scoring exact, and mxu), the kernel-timing entry point
-(python -m manta_tpu_torch.tools.device_timing) and the multi-device dry
-run (manta_tpu_torch.graft_entry.dryrun_multichip):
+(--device-scoring exact, and mxu), the measurement entry points
+(tools.bench_wgs_at_scale, the truth checker of tools.wgs_workload,
+tools.bench), the kernel-timing entry point (python -m
+manta_tpu_torch.tools.device_timing) and the multi-device dry run
+(manta_tpu_torch.graft_entry.dryrun_multichip):
 
 1. environment: torch and CUDA versions, the card's name and power
    limit, the native core, and no JAX anywhere in the process;
@@ -48,6 +50,16 @@ run (manta_tpu_torch.graft_entry.dryrun_multichip):
    -j 2 through the CLI, whose body and chromosome depths equal the
    -j 1 runs'; the real contig jobs of the jump run go through the
    bounded kernel once more, for their flag count;
+6a. measurement entry points, each a child process, on that workload:
+   python -m manta_tpu_torch.tools.bench_wgs_at_scale with jump at -j 2
+   (its diploid body equals the 'off' run's; K1 launched in its workers,
+   by their device-dispatch exit lines and by the artifact's own
+   count), the truth checker (tools.wgs_workload --check --run-dir) on
+   the 'off' run and on the at-scale run (both resume; the lines are
+   equal but for wall, peak RSS and run directory; recall above 0), and
+   python -m manta_tpu_torch.tools.bench (its own 32-tile stress
+   workload through the workflow at all cores, mode resolved to jump,
+   every dispatch through K1; K1's rate at the reference's shape);
 6b. high-span contigs: the demo junction tiled 512 times at a fifth of
    its depth with split-read evidence stripped (python -m
    manta_tpu_torch.tools.stress_workload, in a subprocess: 1,157,120
@@ -60,7 +72,9 @@ run (manta_tpu_torch.graft_entry.dryrun_multichip):
    start-up a device run pays and 'off' does not;
 7. the timing entry point, python -m manta_tpu_torch.tools.device_timing
    --kernel all --json, in a subprocess: its records, and its launch
-   counts (all three kernels launched);
+   counts (all three kernels launched); jumpalign's two records, the
+   host's full aligner equal to the kernel on 32 of 32 contigs and the
+   kernel to the plain form on 512 of 512;
 8. dry run: entry() once on the card against its plain form, then
    python -c "...graft_entry.dryrun_multichip(1)" in a subprocess: all
    seven stages on a mesh of one CUDA device, the jump kernel launched
@@ -146,6 +160,8 @@ HIGH_SPAN_READS = 1_157_120
 HIGH_SPAN_MIN_JOBS = 1000
 HIGH_SPAN_RUNS = (("off", None), ("jump", None), ("jump", 256))
 BOUNDED_ROUNDS = (3, 5)      # benchmarks/device_timing.py:359
+# the timing tool's jumpalign shape (benchmarks/bench_jumpalign.py:51)
+JUMPALIGN_SHAPE = (512, 200, 700)
 # the card's published peaks (NVIDIA's data sheet, H100 SXM, 700 W):
 # device memory rate, and float32 outside the tensor cores, which is
 # also what int32 adds and maxes are held against
@@ -1099,9 +1115,11 @@ def _phase_walls(run_dir: str) -> str:
                      for i in range(len(marks) - 1))
 
 
-def wgs_workload(device: str = "cuda", wgs_args=WGS_ARGS) -> dict:
-    """Returns the kernel launches of the main paths: jump_score from
-    the 'jump' run, split_score from the 'exact' run."""
+def wgs_workload(device: str = "cuda", wgs_args=WGS_ARGS):
+    """Returns the kernel launches of the main paths (jump_score from
+    the 'jump' run, split_score from the 'exact' run) and what the
+    measurement phase reuses: the workload's prefix, its reads and the
+    'off' run's directory."""
     phase("WGS-shaped germline workload: scoring off, jump, exact, mxu")
     from manta_tpu_torch.workflow.run import run_workflow
     work = os.path.join(WORK, "chip_smoke", "wgs")
@@ -1119,6 +1137,7 @@ def wgs_workload(device: str = "cuda", wgs_args=WGS_ARGS) -> dict:
     reads = next(ln for ln in gen.stdout.splitlines() if " wrote " in ln)
     print(f"generated in {time.perf_counter() - t0:.1f} s: "
           f"{reads.split('] ', 1)[1]}", flush=True)
+    n_reads = int(re.search(r"\((\d+) reads", reads).group(1))
 
     # the jump run's dispatches, as the scorer hands them to the
     # kernel: kept for the bounded kernel's flag count below
@@ -1212,8 +1231,10 @@ def wgs_workload(device: str = "cuda", wgs_args=WGS_ARGS) -> dict:
     print("diploidSV body identical: off, jump and exact at -j 1, exact at "
           "-j 2; -j 2 chromDepth.txt == -j 1's", flush=True)
     _flag_real_jobs(dispatches, counted["jump"]["dispatch"]["jobs"])
-    return {"jump_score": counted["jump"]["jump"],
-            "split_score": counted["exact"]["split"]}
+    return ({"jump_score": counted["jump"]["jump"],
+             "split_score": counted["exact"]["split"]},
+            {"prefix": prefix, "reads": n_reads,
+             "run_off": os.path.join(work, "run_off")})
 
 
 _STARTUP = """\
@@ -1325,6 +1346,125 @@ def high_span(card: str) -> dict:
     return launches
 
 
+# the truth checker's keys that are not the calls: the run's own wall,
+# memory and directory
+TRUTH_UNCOMPARED = ("wall_s", "peak_rss_gb", "run_dir")
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(next(ln for ln in reversed(text.splitlines())
+                           if ln.startswith("{")))
+
+
+def measurement_entry_points(card: str, wgs: dict) -> dict:
+    """The measurement and validation entry points as a user runs them,
+    each a child process, on the WGS-shaped workload of the phase
+    before: the at-scale twin with jump scoring at -j 2 (its body equals
+    the 'off' run's, K1 launched in its workers), the truth checker on
+    the 'off' run and on the at-scale run (both resume; equal lines,
+    recall above 0), and the bench twin (its own stress workload, its
+    device rate, the resolved mode). Returns K1's launches in the
+    at-scale run and in the bench twin's run."""
+    phase("measurement entry points: tools.bench_wgs_at_scale (jump, -j 2), "
+          "the truth checker, tools.bench")
+    work = os.path.join(WORK, "chip_smoke", "measure")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    prefix, run_off = wgs["prefix"], wgs["run_off"]
+    run_dir = os.path.join(work, "run_at_scale_jump")
+    t0 = time.perf_counter()
+    at = run_child(["-m", "manta_tpu_torch.tools.bench_wgs_at_scale",
+                    "--workload", prefix, "--reads-m", str(wgs["reads"] / 1e6),
+                    "--device-scoring", "jump", "--jobs", "2",
+                    "--results-dir", os.path.join(work, "results_at_scale"),
+                    "--run-dir", run_dir, "--keep"])
+    if at.returncode != 0:
+        raise RuntimeError(f"bench_wgs_at_scale failed:\n{at.stderr[-3000:]}")
+    art = _last_json(at.stdout)
+    print(json.dumps(art), flush=True)
+    lines = _DISPATCH_LINE.findall(at.stderr)
+    k1 = sum(int(line[5]) for line in lines)
+    body = _records(os.path.join(run_dir, "results", "variants",
+                                 "diploidSV.vcf.gz"))
+    want = _records(os.path.join(run_off, "results", "variants",
+                                 "diploidSV.vcf.gz"))
+    print(f"at-scale twin, jump, -j 2: {time.perf_counter() - t0:.1f} s in "
+          f"the child; {len(lines)} worker device-dispatch lines, "
+          f"{sum(int(line[1]) for line in lines)} contig jobs, {k1} K1 "
+          f"launches; diploidSV body == off's ({len(body)} records)",
+          flush=True)
+    if body != want:
+        raise AssertionError("the at-scale twin's jump body differs from "
+                             "the off run's")
+    if k1 <= 0 or art["k1_launches"] != k1:
+        raise AssertionError(f"at-scale twin: {k1} K1 launches in its "
+                             f"workers' lines, {art['k1_launches']} in its "
+                             "artifact; wanted the same, above 0")
+    if art["device_scoring_resolved"] != "jump" or art["device"] != card:
+        raise AssertionError(f"at-scale artifact: {art['device']!r}, "
+                             f"{art['device_scoring_resolved']!r}")
+
+    checked = {}
+    for name, d in (("off", run_off), ("at_scale_jump", run_dir)):
+        t0 = time.perf_counter()
+        chk = run_child(["-m", "manta_tpu_torch.tools.wgs_workload", "--out",
+                         prefix, "--check", "--run-dir", d])
+        if chk.returncode != 0:
+            raise RuntimeError(f"truth check of {name} failed:\n"
+                               f"{chk.stderr[-3000:]}")
+        if "resume: reusing candidate generation" not in chk.stderr:
+            raise AssertionError(f"the truth check of {name} did not resume")
+        checked[name] = _last_json(chk.stdout)
+        print(f"truth check of {name} ({time.perf_counter() - t0:.1f} s, "
+              f"resumed): {json.dumps(checked[name])}", flush=True)
+    a, b = ({k: v for k, v in line.items() if k not in TRUTH_UNCOMPARED}
+            for line in checked.values())
+    if a != b or not a["recall"] > 0:
+        raise AssertionError(f"truth checks differ or score no recall: "
+                             f"{a} vs {b}")
+    print(f"truth checks equal in every key but {list(TRUTH_UNCOMPARED)}; "
+          f"recall {a['recall']}, gt_acc {a['gt_acc']}, fp_records "
+          f"{a['fp_records']}", flush=True)
+
+    results = os.path.join(work, "results_bench")
+    os.makedirs(results)
+    t0 = time.perf_counter()
+    run = run_child(["-m", "manta_tpu_torch.tools.bench", "--results-dir",
+                     results, "--work-dir", os.path.join(work, "bench")])
+    if run.returncode != 0:
+        raise RuntimeError(f"tools.bench failed:\n{run.stderr[-3000:]}")
+    line = _last_json(run.stdout)
+    print(json.dumps(line), flush=True)
+    lines = _DISPATCH_LINE.findall(run.stderr)
+    in_lines = sum(int(x[5]) for x in lines)
+    print(f"bench twin: {time.perf_counter() - t0:.1f} s in the child; "
+          f"{line['metric']} {line['value']} min; resolved mode "
+          f"{line['device_scoring_resolved']}; workflow: "
+          f"{line['workflow_contig_jobs']} contig jobs in "
+          f"{line['workflow_dispatches']} dispatches, "
+          f"{line['workflow_k1_launches']} K1 launches; device rate "
+          f"{line['device_contigs_per_s']:.1f} contigs/s "
+          f"({line['device_timed_by']}, {line['device_k1_launches']} K1 "
+          "launches)", flush=True)
+    if line["metric"] != "wgs_20core_projection" or \
+            line["device_scoring_resolved"] != "jump" or \
+            not line["device_contigs_per_s"] > 0 or \
+            line["device_k1_launches"] <= 0:
+        raise AssertionError(f"tools.bench line: {line}")
+    # every dispatch of its workflow went through K1, by the workers' own
+    # exit lines and by the tool's count of them
+    if not (line["workflow_k1_launches"] == line["workflow_dispatches"]
+            == in_lines):
+        raise AssertionError(f"tools.bench workflow: "
+                             f"{line['workflow_k1_launches']} K1 launches, "
+                             f"{line['workflow_dispatches']} dispatches, "
+                             f"{in_lines} in the workers' lines")
+    return {"at_scale": k1,
+            "bench": line["workflow_k1_launches"]
+            + line["device_k1_launches"],
+            "bench_workflow": line["workflow_k1_launches"]}
+
+
 def _flag_real_jobs(dispatches, n_jobs: int) -> None:
     """The contig jobs of the WGS-shaped jump run through the bounded
     kernel: how many rows flag, and that its rerun gives the exact
@@ -1378,10 +1518,37 @@ def device_timing() -> dict:
     want = {"matmul_bf16_ref", "jump_score_dp", "jump_score_cuda",
             "split_scan_exact", "split_scan_cuda",
             "split_scan_cuda_factored", "split_scan_mxu",
-            "scan_router_exact"} | {
+            "scan_router_exact", "jumpalign"} | {
         f"jump_score_cuda_bounded_k{k}" for k in BOUNDED_ROUNDS}
     if not want <= names:
         raise AssertionError(f"missing records: {sorted(want - names)}")
+    align = {rec["metric"]: rec for rec in records
+             if rec.get("kernel") == "jumpalign"}
+    device = align.get("jump_align_throughput_device", {})
+    if "jump_align_throughput_host" not in align or \
+            device.get("host_parity") != "32/32" or \
+            device.get("plain_parity") != f"{JUMPALIGN_SHAPE[0]}/" \
+            f"{JUMPALIGN_SHAPE[0]}" or \
+            device.get("shape") != "B={},q={},refs=2x{}".format(
+                *JUMPALIGN_SHAPE):
+        raise AssertionError(f"jumpalign records: {align}")
+    # every row at its full lengths: query int32 (B, q), two references
+    # (B, r), three lengths in, a score out; cells (q + 1) x 2r a row
+    B, q, r = JUMPALIGN_SHAPE
+    ms = device["sec_per_iter"] * 1e3
+    n_ops = JUMP_OPS_PER_CELL * B * (q + 1) * 2 * r
+    bound = _bound(4 * B * (q + 2 * r + 4), n_ops)
+    int32_ms = n_ops / PEAK_INT32_OPS_PER_S * 1e3
+    print(f"jumpalign (B={B}, q={q}, refs 2x{r}): host == kernel on 32 of "
+          f"32 contigs, kernel == plain on {B} of {B}; kernel {ms:.4f} ms a "
+          f"launch (profiler), {device['contigs_per_s']:.0f} contigs/s, "
+          f"layout (lanes, warps a row) {device['layout']}; bound "
+          f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} "
+          f"({bound['bound_ms'] / ms:.2%} reached; at the int32 rate "
+          f"{int32_ms:.5f} ms, {int32_ms / ms:.2%}); the host's full "
+          f"aligner on one core "
+          f"{align['jump_align_throughput_host']['contigs_per_s']:.1f} "
+          "contigs/s", flush=True)
     counts = records[-1]["kernel_launches"]
     if min(counts[k] for k in KERNELS) <= 0:
         raise AssertionError(f"the timing path left a kernel unlaunched: "
@@ -1460,7 +1627,8 @@ def main() -> None:
                 "jump_score_bounded": check_bounded_kernel(),
                 "split_score": check_split_kernel(card)}
     demo_workflow()
-    launches = wgs_workload()
+    launches, wgs = wgs_workload()
+    measured_launches = measurement_entry_points(card, wgs)
     high_span_launches = high_span(card)
     launches["jump_score_bounded"] = device_timing()["jump_score_bounded"]
     dry_launches = dry_run()
@@ -1481,9 +1649,15 @@ def main() -> None:
         "launches_dry_run": dry_launches[name],
         # the high-span jump runs, default edge chunk and 256, each
         # counted in its own process
+        # the measurement entry points, each counted in its own
+        # processes: the at-scale twin's jump run at -j 2, and the bench
+        # twin (its workflow run and its device rate)
         **({"launches_high_span": high_span_launches["jump"],
             "launches_high_span_chunk256":
-                high_span_launches["jump_chunk256"]}
+                high_span_launches["jump_chunk256"],
+            "launches_at_scale": measured_launches["at_scale"],
+            "launches_bench": measured_launches["bench"],
+            "launches_bench_workflow": measured_launches["bench_workflow"]}
            if name == "jump_score" else {}),
         **{key: measured[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -13,6 +13,14 @@ Counterpart of benchmarks/device_timing.py, one bench per entry of its
   jump_cuda          the CUDA jump kernel (exact insert chain), same shape
   jump_cuda_bounded  the CUDA bounded-chain kernel at prefix_rounds 3
                      and 5, same shape; ``n_flagged`` rows would rerun
+  jumpalign          benchmarks/bench_jumpalign.py: contigs spanning a
+                     junction of two references (B=512, q=200, refs
+                     2x700, the refiner's spanning scores), the host's
+                     full aligner (score and traceback) on 32 of them on
+                     one core against the CUDA jump kernel on all of
+                     them (the plain PyTorch form with --device cpu); the
+                     32 host scores must equal the device's, and on the
+                     card the kernel's all equal the plain form's
   jump_layouts       the CUDA jump kernels at the scorer's buckets, full
                      rows, at every choice of lanes per thread: the
                      exact kernel and the bounded one at prefix_rounds
@@ -67,6 +75,10 @@ import numpy as np
 H100_PEAK_BF16_FLOPS = 989e12
 JUMP_SCORES = (2, -8, -18, -1, -1)     # match, mismatch, open, extend, offEdge
 JUMP = -100
+# benchmarks/bench_jumpalign.py: the refiner's spanning scores, and the
+# contigs the host aligner takes
+JUMPALIGN_SCORES = (1, -9, -19, -1, -1)
+JUMPALIGN_HOST_CONTIGS = 32
 FLANK = 16
 BOUNDED_ROUNDS = (3, 5)
 
@@ -205,11 +217,15 @@ def _emit(rec, out):
 
 
 def _record(ctx, kernel, shape, times, **rates):
-    _emit({"kernel": kernel, "shape": shape, "device": ctx.device_name,
-           **times, **rates}, ctx.out)
+    ctx.emit({"kernel": kernel, "shape": shape, "device": ctx.device_name,
+              **times, **rates})
 
 
 class Context:
+    """What a bench runs with. ``emit`` takes each record: printed and
+    appended to ``out`` by default; a caller that wants the records
+    instead replaces it."""
+
     def __init__(self, args, device, device_name, out, iters):
         self.args = args
         self.device = device
@@ -217,6 +233,7 @@ class Context:
         self.out = out
         self.timer = Timer(device, iters)
         self.rng = np.random.default_rng(args.seed)
+        self.emit = lambda rec: _emit(rec, out)
 
 
 # ---------------------------------------------------------------- benches
@@ -240,16 +257,27 @@ def bench_matmul(ctx):
 
 
 def _jump_inputs(ctx):
-    from ..align.device_jumpscore import from_reference_inputs
+    """Random full rows of ``--jump-shape``; where ``ctx.args`` sets
+    ``jump_bucketed`` (``tools.bench``), in tensors as wide as the
+    workflow scorer's buckets, the pad codes after each row (1 in the
+    query, 2 in the references)."""
+    from ..align.device_jumpscore import _bucket, from_reference_inputs
     B, nq, nr = ctx.args.jump_shape
+    bucketed = getattr(ctx.args, "jump_bucketed", False)
+    wq, wr = (_bucket(nq), _bucket(nr)) if bucketed else (nq, nr)
     bases = np.frombuffer(b"ACGT", np.uint8).astype(np.int32)
-    q = bases[ctx.rng.integers(0, 4, (B, nq))]
-    r1 = bases[ctx.rng.integers(0, 4, (B, nr))]
-    r2 = bases[ctx.rng.integers(0, 4, (B, nr))]
+    q = np.full((B, wq), 1, np.int32)
+    r1 = np.full((B, wr), 2, np.int32)
+    r2 = np.full((B, wr), 2, np.int32)
+    q[:, :nq] = bases[ctx.rng.integers(0, 4, (B, nq))]
+    r1[:, :nr] = bases[ctx.rng.integers(0, 4, (B, nr))]
+    r2[:, :nr] = bases[ctx.rng.integers(0, 4, (B, nr))]
     ql = np.full(B, nq, np.int32)
     rl = np.full(B, nr, np.int32)
     t = from_reference_inputs(q, ql, r1, rl, r2, rl, ctx.device)
-    return t, f"B={B},q={nq},refs=2x{nr}", float(B) * nq * (2 * nr)
+    shape = f"B={B},q={nq},refs=2x{nr}" + (
+        f",bucket=({B},{wq},{wr})" if bucketed else "")
+    return t, shape, float(B) * nq * (2 * nr)
 
 
 def _jump_rates(ctx, cells, sec):
@@ -261,7 +289,7 @@ def bench_jump(ctx):
     """The plain PyTorch jump DP (device_jumpscore.batched_jump_score)."""
     from ..align.device_jumpscore import batched_jump_score
     t, shape, cells = _jump_inputs(ctx)
-    _B, nq, nr = ctx.args.jump_shape
+    nq, nr = t[0].shape[1], t[2].shape[1]
     times = ctx.timer(lambda: batched_jump_score(
         *t, *JUMP_SCORES, JUMP, nq, nr, nr), whole_call=True)
     _record(ctx, "jump_score_dp", shape, times,
@@ -300,6 +328,108 @@ def bench_jump_cuda_bounded(ctx):
                 n_flagged=n_flagged,
                 rerun_event_sec_per_iter=rerun["sec_per_iter"],
                 **_jump_rates(ctx, cells, times["sec_per_iter"]))
+
+
+def jumpalign_inputs(rng, B, Lq, Lr):
+    """``make_inputs`` of benchmarks/bench_jumpalign.py: (queries, ref1,
+    ref2) as str lists, each query a prefix from its ref1 and a suffix
+    from its ref2."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    ref1 = ["".join(map(chr, bases[rng.integers(0, 4, Lr)]))
+            for _ in range(B)]
+    ref2 = ["".join(map(chr, bases[rng.integers(0, 4, Lr)]))
+            for _ in range(B)]
+    queries = []
+    for b in range(B):
+        # contig straddles the junction: prefix from ref1, suffix ref2
+        k = int(rng.integers(Lq // 4, 3 * Lq // 4))
+        p1 = int(rng.integers(0, Lr - k))
+        p2 = int(rng.integers(0, Lr - (Lq - k)))
+        queries.append(ref1[b][p1:p1 + k] + ref2[b][p2:p2 + Lq - k])
+    return queries, ref1, ref2
+
+
+def jumpalign_arrays(queries, ref1, ref2):
+    """The padded int32 arrays of the kernel's layout (query pad 1,
+    reference pad 2), as wide as the longest of each."""
+    from ..align.device_jumpscore import _pad_to
+    B = len(queries)
+    out = []
+    for seqs, fill in ((queries, 1), (ref1, 2), (ref2, 2)):
+        out += _pad_to([s.encode() for s in seqs], B,
+                       max(len(s) for s in seqs), fill)
+    return tuple(out)
+
+
+def bench_jumpalign(ctx):
+    """benchmarks/bench_jumpalign.py: the host's full jump aligner
+    (``GlobalJumpAligner.align``, score and traceback, as the refiner
+    runs it) on the first 32 contigs on one core, against the CUDA jump
+    kernel on all B of them (on the CPU the plain form), at the same
+    scores. Every one of the 32 host scores must equal the device's; on
+    the card all B kernel scores must also equal the plain form's there.
+    Two records, the reference's metrics."""
+    from .. import native_core
+    from ..align import cuda_jumpscore as cj
+    from ..align.aligners import AlignmentScores, GlobalJumpAligner
+    from ..align.device_jumpscore import (
+        batched_jump_score, from_reference_inputs,
+    )
+    native_core.load()
+    B, Lq, Lr = ctx.args.jumpalign_shape
+    sc = AlignmentScores(*JUMPALIGN_SCORES)
+    queries, ref1, ref2 = jumpalign_inputs(np.random.default_rng(
+        ctx.args.seed), B, Lq, Lr)
+    n_host = min(JUMPALIGN_HOST_CONTIGS, B)
+    host = GlobalJumpAligner(sc, JUMP)
+    t0 = time.perf_counter()
+    host_scores = [host.align(queries[i].encode(), ref1[i].encode(),
+                              ref2[i].encode()).score for i in range(n_host)]
+    host_dt = (time.perf_counter() - t0) / n_host
+    arrays = jumpalign_arrays(queries, ref1, ref2)
+    t = from_reference_inputs(*arrays, ctx.device)
+    nq, nr1, nr2 = (arrays[i].shape[1] for i in (0, 2, 4))
+    plain = lambda: batched_jump_score(*t, *JUMPALIGN_SCORES, JUMP, nq, nr1,
+                                       nr2)
+    extra = {}
+    if ctx.device.type == "cuda":
+        fn = lambda: cj.jump_score_cuda(*t, *JUMPALIGN_SCORES, JUMP)
+        got = fn()
+        cj.raise_on_kernel_error()
+        want = plain()
+        same = int((got == want).sum())
+        if same != B:
+            raise AssertionError(f"jumpalign: the kernel differs from the "
+                                 f"plain form on {B - same} of {B} rows")
+        extra = {"form": "jump_score_cuda (csrc/jump_score.cu)",
+                 "plain_parity": f"{same}/{B}",
+                 "layout": list(cj.kernel_layout(B, nq))}
+        times = ctx.timer(fn, "jump_systolic_kernel")
+    else:
+        fn = plain
+        got = fn()
+        extra = {"form": "batched_jump_score (the plain PyTorch form)"}
+        times = ctx.timer(fn, whole_call=True)
+    dev_scores = got.cpu().numpy()
+    same = sum(int(dev_scores[i]) == host_scores[i] for i in range(n_host))
+    if same != n_host:
+        raise AssertionError(f"jumpalign: device/host score mismatch on "
+                             f"{n_host - same} of {n_host} contigs")
+    cells = Lq * 2 * Lr
+    dev_dt = times["sec_per_iter"] / B
+    ctx.emit({"kernel": "jumpalign", "metric": "jump_align_throughput_host",
+              "shape": f"B={n_host},q={Lq},refs=2x{Lr}", "device": "host",
+              "form": "GlobalJumpAligner.align (score and traceback), one "
+                      "core",
+              "sec_per_iter": host_dt * n_host, "timed_by": "host clock",
+              "contigs_per_s": 1.0 / host_dt,
+              "gcells_per_s": cells / host_dt / 1e9, "batch": 1})
+    ctx.emit({"kernel": "jumpalign", "metric": "jump_align_throughput_device",
+              "shape": f"B={B},q={Lq},refs=2x{Lr}",
+              "device": ctx.device_name, **extra, **times,
+              "host_parity": f"{same}/{n_host}",
+              "contigs_per_s": 1.0 / dev_dt,
+              "gcells_per_s": cells / dev_dt / 1e9, "batch": B})
 
 
 # (B, nq, nr): the bucket of the WGS-shaped workflow run, the bench
@@ -564,6 +694,7 @@ BENCHES = {
     "matmul": bench_matmul,
     "jump_cuda": bench_jump_cuda,
     "jump_cuda_bounded": bench_jump_cuda_bounded,
+    "jumpalign": bench_jumpalign,
     "split_cuda": bench_split_cuda,
     "split_cuda_factored": bench_split_cuda_factored,
     "split_mxu": bench_split_mxu,
@@ -604,6 +735,8 @@ def main(argv=None) -> int:
                          "kernels, and 3 on the cpu)")
     ap.add_argument("--jump-shape", type=_shape(3), default=(64, 400, 800),
                     metavar="B,Q,R")
+    ap.add_argument("--jumpalign-shape", type=_shape(3),
+                    default=(512, 200, 700), metavar="B,Q,R")
     ap.add_argument("--split-shape", type=_shape(3), default=(512, 500, 150),
                     metavar="B,T,L")
     ap.add_argument("--mxu-shape", type=_shape(4), default=(8, 64, 500, 150),

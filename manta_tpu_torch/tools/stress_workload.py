@@ -43,6 +43,30 @@ TUMOR = os.path.join(DEMO, "G15512.HCC1954.1.COST16011_region.bam")
 DEMO_FA = os.path.join(REPO, ".testdata",
                        "Homo_sapiens_assembly19.COST16011_region.fa")
 
+
+
+def ensure_demo_fasta(path: str = DEMO_FA) -> str:
+    """The demo reference at ``path``, extracted from the repo's tarball
+    (tests/data/demo) where it is not there yet, as tests/conftest.py
+    and chip_smoke.py extract it."""
+    import shutil
+    import tarfile
+    name = os.path.basename(path)
+    if not os.path.exists(path):
+        work = os.path.dirname(path)
+        os.makedirs(work, exist_ok=True)
+        with tarfile.open(os.path.join(DEMO, name + ".tar.bz2")) as tf:
+            tf.extractall(work, filter="data")
+        if not os.path.exists(path):
+            for root, _dirs, files in os.walk(work):
+                if name in files:
+                    os.rename(os.path.join(root, name), path)
+                    break
+    if not os.path.exists(path + ".fai"):
+        shutil.copy(os.path.join(DEMO, name + ".fai"), path + ".fai")
+    return path
+
+
 W8 = (107650000, 107660000)
 W11 = (94970000, 94995000)
 SPAN8, SPAN11 = 12000, 27000

@@ -21,9 +21,13 @@ DEL/INS/DUP/INV/BND at ~1 SV per 100 kb plus background noise
 
 The same seed and flags give the same bytes as the JAX package's
 generator (benchmarks/wgs_workload.py); this copy writes through the
-port's own io.bam, io.bamwriter and core.cigar. It generates only: the
-truth checker, which runs the workflow and scores its calls against the
-TSV, is not part of it.
+port's own io.bam, io.bamwriter and core.cigar. ``--check`` is the truth
+checker: it runs the port's workflow on the generated data (with its
+default device scoring: contig jump scoring on a CUDA device when one is
+present, else off) and scores recall, genotype accuracy and false
+positives against the truth TSV, printing the JAX package's JSON line
+key for key. On a finished run directory (``--run-dir``) the workflow
+resumes, so the check costs only the scoring pass.
 
 All bulk work is vectorized numpy; only junction-adjacent reads
 (~0.5% at default density) take the scalar path.
@@ -31,11 +35,14 @@ All bulk work is vectorized numpy; only junction-adjacent reads
 Usage:
   python -m manta_tpu_torch.tools.wgs_workload --out /tmp/wgs \
       --chroms 2 --mb 8 --depth 35 --seed 7
+  python -m manta_tpu_torch.tools.wgs_workload --out /tmp/wgs --check \
+      [--mode germline|tumor] [--jobs N] [--run-dir D]
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import shutil
 import time
@@ -987,10 +994,230 @@ def generate(args):
               f"({w.n_reads} reads, {args.depth}x nominal)")
 
 
+# -------------------------------------------------------------- checker
+
+def parse_vcf_records(path):
+    import gzip
+    import re
+    op = gzip.open if path.endswith(".gz") else open
+    recs = []
+    with op(path, "rt") as f:
+        for ln in f:
+            if ln.startswith("#"):
+                continue
+            c = ln.rstrip("\n").split("\t")
+            info = dict(kv.split("=", 1) if "=" in kv else (kv, True)
+                        for kv in c[7].split(";"))
+            gt = ""
+            gts = []
+            if len(c) > 9:
+                fmt = c[8].split(":")
+                if "GT" in fmt:
+                    gi = fmt.index("GT")
+                    gts = [col.split(":")[gi] for col in c[9:]]
+                    gt = gts[0]
+            svtype = info.get("SVTYPE", "")
+            if not svtype:
+                m = re.match(r"^Manta(\w+?):", c[2])
+                svtype = m.group(1) if m else ""
+            recs.append(dict(chrom=c[0], pos=int(c[1]), id=c[2],
+                             ref=c[3], alt=c[4], filter=c[6],
+                             info=info, gt=gt, gts=gts, svtype=svtype))
+    return recs
+
+
+def check(args):
+    """Run the workflow on the generated data and score against the
+    planted truth. --mode germline (default) scores diploidSV.vcf with
+    genotypes; --mode tumor runs tumor-only calling and scores
+    tumorSV.vcf (no genotypes — the tumor model emits PR/SR counts),
+    giving the tumor-only pipeline a planted-truth oracle beyond the
+    demo smoke test."""
+    import resource
+    import tempfile
+
+    from ..workflow.run import run_workflow
+    truth = []
+    with open(args.out + ".truth.tsv") as f:
+        next(f)
+        for ln in f:
+            c = ln.rstrip("\n").split("\t")
+            # BND rows pack the mate locus after the genotype list:
+            # "het,ref:chr2:12345"
+            gts = (c[4].split(":", 1)[0] if c[2] == "BND" and ":" in c[4]
+                   else c[4]).split(",")
+            truth.append(dict(chrom=c[0], pos=int(c[1]), type=c[2],
+                              size=int(c[3]), gt=c[4], gts=gts))
+    n_smp = len(truth[0]["gts"]) if truth else 1
+    bams = ([args.out + ".bam"] if n_smp == 1 else
+            [args.out + f".s{k}.bam" for k in range(n_smp)])
+    run_dir = args.run_dir or tempfile.mkdtemp(prefix="wgs_")
+    t0 = time.time()
+    if args.mode == "tumor":
+        assert n_smp == 1, "tumor mode scores a single sample"
+        run_workflow([], bams, args.out + ".fa", run_dir,
+                     n_jobs=args.jobs, verbose=True)
+        out_vcf = "tumorSV.vcf.gz"
+    else:
+        run_workflow(bams, [], args.out + ".fa", run_dir,
+                     n_jobs=args.jobs, verbose=True)
+        out_vcf = "diploidSV.vcf.gz"
+    wall = time.time() - t0
+    peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+    recs = parse_vcf_records(
+        os.path.join(run_dir, "results", "variants", out_vcf))
+    recs = [r for r in recs if r["filter"] in ("PASS", ".")]
+    tol = args.tolerance
+
+    def match(tr):
+        """Find a PASS record matching truth entry tr."""
+        want = {"DEL": ("DEL",), "INS": ("INS",), "DUP": ("DUP",),
+                "INV": ("BND", "INV"), "BND": ("BND",)}[tr["type"]]
+        hits = []
+        for r in recs:
+            if r["chrom"] != tr["chrom"] or r["svtype"] not in want:
+                continue
+            if abs(r["pos"] - tr["pos"]) <= tol:
+                hits.append(r)
+        return hits
+
+    n_found = n_gt_ok = 0
+    by_type = {}
+    missed = []
+    matched_ids = set()
+    for tr in truth:
+        hits = match(tr)
+        bt = by_type.setdefault(tr["type"], [0, 0])
+        bt[1] += 1
+        if hits:
+            n_found += 1
+            bt[0] += 1
+            matched_ids.update(h["id"] for h in hits)
+            if args.mode == "tumor":
+                n_gt_ok += 1
+            else:
+                # per-sample genotype check (joint calling: one record,
+                # one GT column per sample)
+                want = ["1/1" if g == "hom" else
+                        ("0/1" if g == "het" else "0/0")
+                        for g in tr["gts"]]
+                def smp_ok(h, k):
+                    cols = h["gts"] or [h["gt"]]
+                    got = (cols[k] if k < len(cols) else "").replace(
+                        "|", "/")
+                    return got == want[k]
+                if any(all(smp_ok(h, k) for k in range(len(want)))
+                       for h in hits):
+                    n_gt_ok += 1
+        else:
+            missed.append(tr)
+    # FP: PASS spanning records not matching any truth breakend
+    truth_pts = {(t["chrom"], t["pos"]) for t in truth}
+    for t in truth:
+        if t["type"] in ("DEL", "DUP", "INV"):
+            truth_pts.add((t["chrom"], t["pos"] + t["size"]))
+        elif t["type"] == "BND" and ":" in t["gt"]:
+            _, mc, mp = t["gt"].split(":")
+            truth_pts.add((mc, int(mp)))
+    fp = [r for r in recs if r["id"] not in matched_ids and
+          not any(r["chrom"] == c and abs(r["pos"] - p) <= tol
+                  for c, p in truth_pts)]
+
+    out = {
+        "metric": "wgs_sim_recall",
+        "mode": args.mode,
+        "truth_n": len(truth),
+        "recall": round(n_found / len(truth), 4),
+        "gt_acc": round(n_gt_ok / max(n_found, 1), 4),
+        "fp_records": len(fp),
+        "by_type": {k: f"{v[0]}/{v[1]}" for k, v in by_type.items()},
+        "wall_s": round(wall, 1),
+        "peak_rss_gb": round(peak_gb, 2),
+        "run_dir": run_dir,
+    }
+
+    # --repeats runs: split recall by repeat proximity, and surface the
+    # graph's complexity-abort statistics (the whole point of the
+    # adversarial content — SVLocusSetOptions.hpp:50-54 semantics)
+    rep_path = args.out + ".repeats.tsv"
+    if os.path.exists(rep_path):
+        spans = []
+        with open(rep_path) as f:
+            next(f)
+            for ln in f:
+                typ, unit, cps = ln.rstrip("\n").split("\t")
+                for cp in cps.split(";"):
+                    ch, be = cp.split(":")
+                    b, e = be.split("-")
+                    spans.append((ch, int(b), int(e), typ))
+
+        def near_repeat(tr, pad=1000):
+            for (ch, b, e, typ) in spans:
+                if tr["chrom"] == ch and b - pad <= tr["pos"] <= e + pad:
+                    return True
+            return False
+
+        def inside_tandem(tr, margin=150):
+            """Junction strictly interior to a satellite array: the SV
+            degrades to a unit-remainder indel (the periodic reference
+            absorbs whole units) and no unique flank exists within
+            reach of the assembler — information-theoretically
+            unrecoverable from local evidence, and the class the
+            reference's repeat-word truncation + flank-uniqueness
+            filter (methods.tex:406) protect precision against."""
+            for (ch, b, e, typ) in spans:
+                if typ != "tandem" or tr["chrom"] != ch:
+                    continue
+                if b + margin <= tr["pos"] <= e - margin and \
+                        tr["pos"] + tr["size"] <= e - margin:
+                    return True
+            return False
+
+        rep_truth = [t for t in truth if near_repeat(t)]
+        clean_truth = [t for t in truth if not near_repeat(t)]
+        rep_found = sum(1 for t in rep_truth if match(t))
+        clean_found = sum(1 for t in clean_truth if match(t))
+        inside = [t for t in rep_truth if inside_tandem(t)]
+        edge = [t for t in rep_truth if not inside_tandem(t)]
+        inside_found = sum(1 for t in inside if match(t))
+        edge_found = sum(1 for t in edge if match(t))
+        from ..graph.locusgraph import SVLocusSet
+        g = SVLocusSet.load(
+            os.path.join(run_dir, "workspace", "svLocusGraph.npz"))
+        out.update({
+            "repeat_families": len({(c, b) for (c, b, _e, _t) in spans}),
+            "truth_in_repeat": len(rep_truth),
+            "recall_in_repeat": round(rep_found / max(len(rep_truth), 1),
+                                      4),
+            "truth_inside_tandem": len(inside),
+            "recall_inside_tandem": round(
+                inside_found / max(len(inside), 1), 4),
+            "truth_repeat_edge": len(edge),
+            "recall_repeat_edge": round(
+                edge_found / max(len(edge), 1), 4),
+            "recall_clean": round(clean_found / max(len(clean_truth), 1),
+                                  4),
+            "graph_highest_search_count": int(g.highest_search_count),
+            "graph_highest_search_density": round(
+                float(g.highest_search_density), 4),
+            "graph_abort_count_hit": bool(g.is_max_search_count),
+            "graph_abort_density_hit": bool(g.is_max_search_density),
+        })
+    print(json.dumps(out))
+    if args.verbose_misses:
+        for tr in missed[:40]:
+            print("MISS", tr)
+        for r in fp[:20]:
+            print("FP", r["chrom"], r["pos"], r["svtype"], r["id"])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Generate a WGS-shaped germline workload: <out>.bam, "
-                    "<out>.fa (+ .fai) and <out>.truth.tsv")
+                    "<out>.fa (+ .fai) and <out>.truth.tsv; or, with "
+                    "--check, score a workflow run against its truth")
     ap.add_argument("--out", required=True)
     ap.add_argument("--chroms", type=int, default=8)
     ap.add_argument("--mb", type=int, default=16)
@@ -1015,9 +1242,21 @@ def main(argv=None):
                          "same truth SV set and its own BAM "
                          "(out.s<k>.bam); 1 keeps the single-sample "
                          "layout (out.bam)")
+    ap.add_argument("--check", action="store_true",
+                    help="run the workflow on <out> and score its calls "
+                         "against <out>.truth.tsv instead of generating")
+    ap.add_argument("--mode", default="germline",
+                    choices=("germline", "tumor"))
+    ap.add_argument("--jobs", type=int, default=0, help="0 = all cores")
+    ap.add_argument("--run-dir", default=None)
+    ap.add_argument("--tolerance", type=int, default=50)
+    ap.add_argument("--verbose-misses", action="store_true")
     args = ap.parse_args(argv)
     native_core.load()
-    generate(args)
+    if args.check:
+        check(args)
+    else:
+        generate(args)
 
 
 if __name__ == "__main__":

@@ -168,6 +168,18 @@ def resolve_device(device_scoring, device):
     return device
 
 
+def build_kernels(device_scoring) -> None:
+    """Build the CUDA libraries that ``device_scoring`` launches, in
+    this process. nvcc touches no CUDA state, so the workers a -j N run
+    forks then load them; without this each worker compiled its own
+    copy at its first dispatch, all at once (6.0-7.2 s each at -j 8 on a
+    fresh checkout, PERF.md section 5)."""
+    from .._build import build
+    build("jump_score")
+    if device_scoring in ("exact", "mxu"):
+        build("split_score")
+
+
 def run_workflow(normal_bams: list[str], tumor_bams: list[str],
                  reference: str, run_dir: str,
                  regions: list[str] | None = None,
@@ -240,6 +252,8 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     is_tumor_only = bool(tumor_bams) and not normal_bams
     device_scoring = resolve_device_scoring(use_device_scoring)
     scoring_device = resolve_device(device_scoring, device)
+    if scoring_device is not None and scoring_device.type == "cuda":
+        build_kernels(device_scoring)
     # contig jump scoring rides the same device decision; the native
     # score-only batch is the host fallback (both are bit-exact vs the
     # traceback aligner, so this is purely a performance choice)

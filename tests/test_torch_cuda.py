@@ -628,3 +628,37 @@ def test_dryrun_multichip_on_one_card(cuda, demo_fasta):
     assert stages["1"]["split_score"] > 0 and stages["4"]["split_score"] > 0
     assert stages["7"] == {"jump_score": 0, "jump_score_bounded": 0,
                            "split_score": 0}
+
+
+# ---- the measurement entry points (manta_tpu_torch/tools/)
+
+def test_jumpalign_on_the_card_matches_the_host_aligner(cuda):
+    """The jumpalign bench at its full shape (B=512, q=200, refs 2x700):
+    the kernel's scores equal the host's full aligner on 32 of 32
+    contigs and the plain form on the card on all 512."""
+    from manta_tpu_torch.tools import device_timing as dt
+    records = []
+    args = dt.argparse.Namespace(jumpalign_shape=(512, 200, 700), seed=0)
+    ctx = dt.Context(args, cuda, torch.cuda.get_device_name(0), None, 3)
+    ctx.emit = records.append
+    before = cuda_jumpscore.KERNEL_LAUNCHES["jump_score"]
+    dt.bench_jumpalign(ctx)
+    host, device = records
+    assert host["metric"] == "jump_align_throughput_host"
+    assert device["host_parity"] == "32/32"
+    assert device["plain_parity"] == "512/512"
+    assert device["timed_by"] == "torch.profiler"
+    assert device["contigs_per_s"] > 0 and host["contigs_per_s"] > 0
+    assert cuda_jumpscore.KERNEL_LAUNCHES["jump_score"] > before
+
+
+def test_bench_measure_device_on_the_card(cuda):
+    from manta_tpu_torch.tools import bench
+    before = cuda_jumpscore.KERNEL_LAUNCHES["jump_score"]
+    dev = bench.measure_device()
+    assert dev["device_contigs_per_s"] > 0 and dev["device_gcells_per_s"] > 0
+    assert dev["device_timed_by"] == "torch.profiler"
+    assert dev["device_shape"] == "B=64,q=400,refs=2x800,bucket=(64,512,1024)"
+    assert dev["device_k1_launches"] > 0
+    assert cuda_jumpscore.KERNEL_LAUNCHES["jump_score"] - before == \
+        dev["device_k1_launches"]
