@@ -7,9 +7,10 @@ Run from the root of a checkout. It drives the port's main paths,
 contig jump scoring (--device-scoring jump), the device split-read scan
 (--device-scoring exact, and mxu), the measurement entry points
 (tools.bench_wgs_at_scale, the truth checker of tools.wgs_workload,
-tools.bench), the kernel-timing entry point (python -m
-manta_tpu_torch.tools.device_timing) and the multi-device dry run
-(manta_tpu_torch.graft_entry.dryrun_multichip):
+tools.bench), the benchmark twins (tools.bench_edges, bench_graphbuild,
+soak_graph, bench_reduce, bench_repeats), the kernel-timing entry point
+(python -m manta_tpu_torch.tools.device_timing) and the multi-device dry
+run (manta_tpu_torch.graft_entry.dryrun_multichip):
 
 1. environment: torch and CUDA versions, the card's name and power
    limit, the native core, and no JAX anywhere in the process;
@@ -70,6 +71,16 @@ manta_tpu_torch.tools.device_timing) and the multi-device dry run
    dispatches through the jump kernel by the child's own count; and a
    child that only imports torch and makes a CUDA context, for the
    start-up a device run pays and 'off' does not;
+6c. the benchmark twins (python -m manta_tpu_torch.tools.<name>), each a
+   child process: bench_edges with jump at -j 1 on the high-span BAM
+   (the off run's 2,048 edges, K1 a dispatch by its own count and by its
+   exit line), bench_graphbuild at -j 1 and -j 2 on that BAM (reads,
+   loci, nodes and edges equal), soak_graph at 60,000 loci on 6
+   chromosomes (deterministic, round-trips, under 2 GB), bench_reduce
+   twice (equal node counts), and bench_repeats on one seed of the
+   WGS-shaped size with 40 repeat anchors, jump then exact on the same
+   workload (records identical but for walls and device work; K1
+   launched in jump, K3 in exact);
 7. the timing entry point, python -m manta_tpu_torch.tools.device_timing
    --kernel all --json, in a subprocess: its records, and its launch
    counts (all three kernels launched); jumpalign's two records, the
@@ -159,6 +170,16 @@ HIGH_SPAN_TILES = 512
 HIGH_SPAN_READS = 1_157_120
 HIGH_SPAN_MIN_JOBS = 1000
 HIGH_SPAN_RUNS = (("off", None), ("jump", None), ("jump", 256))
+# the benchmark twins' phase: the soak at the size of the JAX package's
+# soak test (tests/test_graph_soak.py), the reduce at an eighth of its
+# default size (seconds), and one repeats seed at the WGS-shaped size
+# above at the host's 8 cores; 40 anchors fit in 2 x 4 Mb (40 truth SVs
+# in repeats)
+SOAK_ARGS = ("--loci", "60000", "--chroms", "6")
+REDUCE_ARGS = ("--loci", "60000", "--chroms", "24")
+REPEATS_ARGS = ("--seeds", "3", "--chroms", "2", "--mb", "4", "--anchors",
+                "40", "--jobs", "8")
+GRAPH_COUNTS = ("reads", "loci", "nodes", "edges")
 BOUNDED_ROUNDS = (3, 5)      # benchmarks/device_timing.py:359
 # the timing tool's jumpalign shape (benchmarks/bench_jumpalign.py:51)
 JUMPALIGN_SHAPE = (512, 200, 700)
@@ -1252,11 +1273,13 @@ _DISPATCH_LINE = re.compile(
     r"kernel launches; calls by bucket \(B, nq, nr1, nr2\): (\{.*\})")
 
 
-def high_span(card: str) -> dict:
+def high_span(card: str) -> tuple[dict, dict]:
     """The high-spanning-contig shape through the workflow's command
     line, in child processes: scoring off, then jump at the default edge
     chunk and at 256. Returns the jump kernel's launches in each jump
-    run, by the child's own count (its device-dispatch exit line)."""
+    run, by the child's own count (its device-dispatch exit line), and
+    what the benchmark twins' phase reuses: the workload's prefix and
+    the 'off' run's graph edges."""
     phase(f"high-span contigs: {HIGH_SPAN_TILES} demo tiles, depth 0.2, "
           "no split-read evidence; scoring off, jump, jump at chunk 256")
     work = os.path.join(WORK, "chip_smoke", "high_span")
@@ -1307,6 +1330,7 @@ def high_span(card: str) -> dict:
             if dispatch or "split-scan pid=" in cli.stderr:
                 raise AssertionError("high-span off used the device")
             print(f"{line}; no device work", flush=True)
+            edges_off = int(edges[-1])
             continue
         if len(dispatch) != 1:
             raise AssertionError(f"high-span {name}: {len(dispatch)} "
@@ -1343,7 +1367,140 @@ def high_span(card: str) -> dict:
                                  f"differs from off's in {differ} records")
     print(f"{card}; tumorSV body identical: {', '.join(bodies)} "
           f"({len(first)} records)", flush=True)
-    return launches
+    return launches, {"prefix": prefix, "edges_off": edges_off}
+
+
+# a small process that starts the code of its first argument in a child
+# of its own: a process's ru_maxrss carries the high-water mark of the
+# process that started it (fork, then exec), and this one is small
+_RELAUNCH = """
+import subprocess
+sys.exit(subprocess.run([sys.executable, "-c", *sys.argv[1:]]).returncode)
+"""
+
+
+def _twin(name: str, *args, relaunch: bool = False) -> tuple[dict, str]:
+    """``python -m manta_tpu_torch.tools.<name> args`` in a child: its
+    last JSON line and its stderr. With ``relaunch`` the child starts it
+    from a small process, for a peak RSS of its own."""
+    t0 = time.perf_counter()
+    if relaunch:
+        code = (_GUARD + "import runpy\n"
+                f"runpy.run_module('manta_tpu_torch.tools.{name}', "
+                "run_name='__main__', alter_sys=True)\n")
+        run = run_child(["-c", _RELAUNCH, code, *args])
+    else:
+        run = run_child(["-m", f"manta_tpu_torch.tools.{name}", *args])
+    if run.returncode != 0:
+        raise RuntimeError(f"tools.{name} {' '.join(args)} failed "
+                           f"({run.returncode}):\n{run.stdout[-3000:]}\n"
+                           f"{run.stderr[-3000:]}")
+    line = _last_json(run.stdout)
+    print(f"tools.{name} ({time.perf_counter() - t0:.1f} s in the child): "
+          f"{json.dumps(line)}", flush=True)
+    return line, run.stderr
+
+
+def bench_scripts(card: str, high: dict) -> dict:
+    """The twins of the JAX-free benchmark scripts as a user runs them,
+    each a child process: bench_edges with jump at -j 1 and
+    bench_graphbuild at -j 1 and -j 2 on the high-span BAM, the graph
+    soak, the reduce profile twice, and one repeats seed in jump and in
+    exact on one workload. Returns K1's launches in bench_edges and in
+    the jump seed, and K3's in the exact seed, each counted in the
+    processes that ran them."""
+    phase("benchmark twins: bench_edges (jump, -j 1), bench_graphbuild "
+          "(-j 1, -j 2), soak_graph, bench_reduce (twice), bench_repeats "
+          "(jump, exact)")
+    from manta_tpu_torch.tools.bench_repeats import DEVICE_KEYS, RUN_KEYS
+    work = os.path.join(WORK, "chip_smoke", "bench_scripts")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    bam, fa = high["prefix"] + ".bam", high["prefix"] + ".fa"
+
+    line, err = _twin("bench_edges", "--bam", bam, "--fasta", fa, "-j", "1",
+                      "--device-scoring", "jump", "--work-dir", work)
+    k1 = sum(int(x[5]) for x in _DISPATCH_LINE.findall(err))
+    if line["edges"] != high["edges_off"] or line["device"] != card or \
+            line["device_scoring_resolved"] != "jump":
+        raise AssertionError(f"bench_edges: {line['edges']} edges (the "
+                             f"high-span off run: {high['edges_off']}), "
+                             f"{line['device']!r}, "
+                             f"{line['device_scoring_resolved']!r}")
+    if not line["k1_launches"] >= 1 or line["k1_launches"] != k1 or \
+            line["k1_launches"] != line["dispatches"]:
+        raise AssertionError(f"bench_edges: {line['k1_launches']} K1 "
+                             f"launches, {k1} in its exit line, "
+                             f"{line['dispatches']} dispatches")
+    print(f"bench_edges: {line['edges']} edges == the high-span off run's; "
+          f"{line['contig_jobs']} contig jobs in {line['dispatches']} "
+          f"dispatches, {k1} K1 launches", flush=True)
+
+    counts = {}
+    for jobs in (1, 2):
+        got, _ = _twin("bench_graphbuild", "--bam", bam, "--fasta", fa,
+                       "-j", str(jobs), "--work-dir", work)
+        counts[jobs] = {k: got[k] for k in GRAPH_COUNTS}
+    if counts[1] != counts[2] or not counts[1]["edges"] > 0:
+        raise AssertionError(f"bench_graphbuild -j 1 vs -j 2: {counts}")
+    print(f"bench_graphbuild: {counts[1]} at -j 1 and -j 2", flush=True)
+
+    soak, _ = _twin("soak_graph", *SOAK_ARGS, relaunch=True)
+    if not (soak["build_deterministic"] and soak["serialize_roundtrip"]
+            and soak["rss_under_2gb"]):
+        raise AssertionError(f"soak_graph: {soak}")
+
+    reduced = [_twin("bench_reduce", *REDUCE_ARGS, "--work-dir", work)[0]
+               for _ in range(2)]
+    nodes = [(r["nodes"], r["nodes_presplit"]) for r in reduced]
+    if nodes[0] != nodes[1] or not min(nodes[0]) > 0:
+        raise AssertionError(f"bench_reduce (nodes, nodes_presplit): {nodes}")
+    print(f"bench_reduce twice: (nodes, nodes_presplit) {nodes[0]}; serial "
+          f"tail {[r['serial_tail_s'] for r in reduced]} s", flush=True)
+
+    records = {}
+    for mode in ("jump", "exact"):
+        _agg, err = _twin("bench_repeats", *REPEATS_ARGS, "--device-scoring",
+                          mode, "--work-dir", os.path.join(work, "repeats"),
+                          "--results-dir", os.path.join(work, "results"),
+                          "--tag", mode, "--keep", "--reuse")
+        with open(os.path.join(work, "results",
+                               f"repeats_check_{mode}.json")) as f:
+            records[mode] = json.load(f)["per_seed"][0]
+        print(f"bench_repeats seed record ({mode}): "
+              f"{json.dumps(records[mode])}", flush=True)
+        print("\n".join(ln for ln in err.splitlines()
+                        if ln.startswith("[bench_repeats]")), flush=True)
+    jump, exact = records["jump"], records["exact"]
+    skip = RUN_KEYS + DEVICE_KEYS
+    if {k: v for k, v in jump.items() if k not in skip} != \
+            {k: v for k, v in exact.items() if k not in skip}:
+        raise AssertionError("bench_repeats: the jump and exact records "
+                             "differ beyond walls and device work")
+    if not jump["truth_in_repeat"] > 0:
+        raise AssertionError("bench_repeats: no truth SV in a repeat")
+    # K1 a dispatch; a seed whose workflow makes no contig job would show
+    # none, and the assertion is then the one launch a dispatch alone
+    if jump["k1_launches"] != jump["dispatches"] or \
+            (jump["contig_jobs"] and not jump["k1_launches"] >= 1):
+        raise AssertionError(f"bench_repeats jump: {jump['k1_launches']} K1 "
+                             f"launches for {jump['dispatches']} dispatches "
+                             f"and {jump['contig_jobs']} contig jobs")
+    if not exact["k3_launches"] >= 1 or \
+            exact["k3_launches"] != exact["split_scans"]:
+        raise AssertionError(f"bench_repeats exact: {exact['k3_launches']} "
+                             f"K3 launches for {exact['split_scans']} split "
+                             "scans")
+    print(f"{card}; bench_repeats seed 3: jump and exact records identical "
+          f"but for {list(skip)}; truth {jump['truth_n']} "
+          f"({jump['truth_in_repeat']} in repeats), recall {jump['recall']}; "
+          f"jump {jump['contig_jobs']} contig jobs in {jump['dispatches']} "
+          f"dispatches, {jump['k1_launches']} K1 launches; exact "
+          f"{exact['split_scans']} split scans, {exact['k3_launches']} K3 "
+          "launches", flush=True)
+    return {"bench_edges": line["k1_launches"],
+            "repeats": jump["k1_launches"],
+            "repeats_exact": exact["k3_launches"]}
 
 
 # the truth checker's keys that are not the calls: the run's own wall,
@@ -1629,7 +1786,8 @@ def main() -> None:
     demo_workflow()
     launches, wgs = wgs_workload()
     measured_launches = measurement_entry_points(card, wgs)
-    high_span_launches = high_span(card)
+    high_span_launches, high = high_span(card)
+    twin_launches = bench_scripts(card, high)
     launches["jump_score_bounded"] = device_timing()["jump_score_bounded"]
     dry_launches = dry_run()
     foreign = sorted(m for m in sys.modules
@@ -1657,8 +1815,14 @@ def main() -> None:
                 high_span_launches["jump_chunk256"],
             "launches_at_scale": measured_launches["at_scale"],
             "launches_bench": measured_launches["bench"],
-            "launches_bench_workflow": measured_launches["bench_workflow"]}
+            "launches_bench_workflow": measured_launches["bench_workflow"],
+            # the benchmark twins: bench_edges on the high-span BAM and
+            # the jump repeats seed, each counted in its processes
+            "launches_bench_edges": twin_launches["bench_edges"],
+            "launches_repeats": twin_launches["repeats"]}
            if name == "jump_score" else {}),
+        **({"launches_repeats_exact": twin_launches["repeats_exact"]}
+           if name == "split_score" else {}),
         **{key: measured[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "bound_ms_int32") if key in measured[name]}}

@@ -8,7 +8,8 @@ A second package beside ``manta_tpu``, and independent of it: it imports
 command-line tools ``tools.test_assembler|workers|convert_inversion|
 denovo_scoring|svloci``) are the port's own copies of the JAX package's
 JAX-free modules, under the same names; they load the same native core
-(``native/libmanta_core.so``).
+source (``native/manta_core.cpp``), which the port builds into its own
+``build/`` (``_native``) and never writes under ``native/``.
 
 What replaces the JAX package's device code:
 

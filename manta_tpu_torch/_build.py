@@ -4,9 +4,9 @@ A CUDA kernel is one ``csrc/<name>.cu`` file with a plain C interface
 (it may include the shared ``csrc/*.cuh`` headers), compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/lib<name>.so`` and loaded with
 ``ctypes``. A host helper is one ``csrc/<name>.c`` file compiled by the
-C compiler. A library is rebuilt when its source or a header is newer,
-the same rule as ``_native.py``. Nothing here runs at
-import time, so hosts without ``nvcc`` import the package freely.
+C compiler. A library is rebuilt when its source or a header is newer
+(the native core has a rule of its own, in ``_native.py``). Nothing here
+runs at import time, so hosts without ``nvcc`` import the package freely.
 """
 
 from __future__ import annotations

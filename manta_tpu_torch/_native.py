@@ -5,8 +5,13 @@ C ABI for all native entry points (aligners, BAM parsing, batch scans).
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
+import time
+
+from . import _build
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
 _LIB = None
@@ -33,27 +38,49 @@ class MtAsmResult(ctypes.Structure):
     ]
 
 
+def _core_path(is_asan: bool = False) -> str:
+    """The port's own build of the native core: ``build/`` holds one
+    library per content of ``native/manta_core.cpp`` (a hash of it names
+    the file), so neither a checkout's mtimes nor a rebuild by the JAX
+    package can make it stale. One process compiles under an exclusive
+    lock on ``build/<name>.lock`` while the others wait, into a
+    temporary name that ``os.replace`` puts in place: no process can
+    load a half-written library. Nothing under ``native/`` is written."""
+    src = os.path.abspath(os.path.join(_NATIVE_DIR, "manta_core.cpp"))
+    with open(src, "rb") as f:
+        key = hashlib.sha256(f.read()).hexdigest()[:16]
+    name = "libmanta_core_asan" if is_asan else "libmanta_core"
+    so = os.path.join(_build.BUILD_DIR, f"{name}.{key}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_build.BUILD_DIR, f"{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(so):      # no other process built it
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, src,
+                   "-ldeflate", "-lpthread"]
+            if is_asan:
+                cmd[1:1] = ["-g", "-fsanitize=address",
+                            "-fno-omit-frame-pointer"]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"building {src} failed:\n{res.stderr}")
+            os.replace(tmp, so)
+            _build.BUILD_SECONDS[name] = time.perf_counter() - t0
+    return so
+
+
 def get_lib():
     global _LIB
     if _LIB is not None:
         return _LIB
-    src = os.path.abspath(os.path.join(_NATIVE_DIR, "manta_core.cpp"))
     # sanitizer build mode (reference: --build-type=ASan,
     # docs/developerGuide/README.md:115-122): MANTA_TPU_ASAN=1 builds a
     # separate instrumented library; run tests with it preloaded, e.g.
     #   LD_PRELOAD=$(g++ -print-file-name=libasan.so) MANTA_TPU_ASAN=1
-    is_asan = os.environ.get("MANTA_TPU_ASAN") == "1"
-    name = "libmanta_core_asan.so" if is_asan else "libmanta_core.so"
-    so = os.path.abspath(os.path.join(_NATIVE_DIR, name))
-    if (not os.path.exists(so)) or \
-            os.path.getmtime(so) < os.path.getmtime(src):
-        cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", so, src,
-               "-ldeflate", "-lpthread"]
-        if is_asan:
-            cmd[1:1] = ["-g", "-fsanitize=address",
-                        "-fno-omit-frame-pointer"]
-        subprocess.run(cmd, check=True)
-    lib = ctypes.CDLL(so)
+    lib = ctypes.CDLL(_core_path(os.environ.get("MANTA_TPU_ASAN") == "1"))
 
     lib.mt_bam_size.restype = ctypes.c_int
     lib.mt_bam_size.argtypes = [

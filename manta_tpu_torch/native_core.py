@@ -1,15 +1,15 @@
 """Load the native core on hosts with or without libdeflate.
 
-The core (``native/libmanta_core.so``, built from
-``native/manta_core.cpp`` and loaded by the port's ``_native``)
-links ``libdeflate.so.0`` for BGZF inflate and deflate. Where the host
-has no such library, the subset of its ABI the core uses is built from
+The core (the port's own build of ``native/manta_core.cpp`` under
+``build/``, made and loaded by the port's ``_native``) links
+``libdeflate.so.0`` for BGZF inflate and deflate. Where the host has no
+such library, the subset of its ABI the core uses is built from
 ``csrc/deflate_compat.c`` over zlib, under the soname ``libdeflate.so.0``,
 and loaded before the core, so the dynamic loader resolves the core's
 dependency to it. Child processes (fork workers, a workload generator,
-``_native``'s own ``g++ ... -ldeflate`` rebuild) find it
-through ``LD_LIBRARY_PATH`` and ``LIBRARY_PATH``, which ``load`` extends
-in that case.
+``_native``'s own ``g++ ... -ldeflate`` build) find it through
+``LD_LIBRARY_PATH`` and ``LIBRARY_PATH``, which ``load`` extends in that
+case.
 """
 
 from __future__ import annotations

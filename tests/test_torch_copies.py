@@ -28,14 +28,27 @@ _DEVICE = ("the port's device seam: the torch device is an argument, "
 _NAME = "the port's own package name in a usage or example line"
 _WORDING = "the copy's own wording for a comment or docstring"
 # where the original's side holds a word the port's sources avoid, the
-# hunk gives the first 16 hex digits of its text's SHA-256 instead
+# hunk gives the first 16 hex digits of its text's SHA-256 instead; a
+# long copy side may be given so too
 _NATIVE = ("the card's host has no libdeflate: the native core is loaded "
            "through native_core, which provides it, before any BAM is read")
 _DOC = "the package docstring of the port's sub-package"
+_CORE = ("the port builds its own native core under build/, named by a "
+         "hash of the source, one process compiling under a lock into a "
+         "temporary name: it never writes under native/, and no process "
+         "loads a half-written library (the original rebuilds "
+         "native/libmanta_core.so in place when its mtime is older)")
 
 # module path -> [(reason, original's lines or their digest, copy's
 # lines)]
 ALLOWED = {
+    "_native.py": [
+        (_CORE, [], ["import fcntl", "import hashlib"]),
+        (_CORE, [], ["import time", "", "from . import _build"]),
+        (_CORE, [], 'b3f39789831beb90'),
+        (_CORE, ['    src = os.path.abspath(os.path.join(_NATIVE_DIR, '
+                 '"manta_core.cpp"))'], []),
+        (_CORE, 'cf5c50e764bf386c', 'f987a636fa8ae7a9')],
     "io/__init__.py": [(
         _WORDING,
         ["struct-of-arrays read batches suited to feeding TPU kernels "
@@ -168,6 +181,162 @@ ALLOWED = {
 }
 
 
+# the port's twins of the JAX-free scripts of benchmarks/, diffed against
+# their originals as the copies are: twin path -> the original's path
+TWINS = {f"tools/{name}.py": f"benchmarks/{name}.py" for name in (
+    "soak_graph", "bench_reduce", "bench_graphbuild", "bench_edges",
+    "bench_repeats")}
+_T_DOC = ("the twin's docstring: how it is run, what it runs on, where "
+          "it writes")
+_T_IMPORT = ("the twin imports the port's modules, relative to its "
+             "package, and loads the native core through native_core")
+_T_ARGS = ("the twin's command line: argv from a caller, a description "
+           "and flags of its own")
+_T_RETURN = "main prints its line flushed and returns it to a caller"
+_T_WORKDIR = ("temporary files in a directory under --work-dir, removed "
+              "at the end")
+_T_DEVICE = ("the device seam: --device, --device-scoring, the resolved "
+             "mode and the device work counted in every process")
+_T_REPEATS = ("each seed's generation and check are children of the "
+              "port's tools.wgs_workload behind a guard against the JAX "
+              "package, a mode other than auto runs the workflow first, "
+              "the device work is counted, the aggregate is a function "
+              "of its own and goes to --results-dir")
+# twin path -> [(reason, digest of the original's lines, the twin's
+# lines or their digest)]
+TWIN_ALLOWED = {
+    "tools/soak_graph.py": [
+        (_T_DOC, '373bf521b598e742',
+         '76738a4f8947efed'),
+        (_T_IMPORT, '3727adff524e0616',
+         []),
+        (_T_IMPORT, 'deae7a750ef4ef15',
+         ['from .. import native_core']),
+        (_T_IMPORT, '08a73e5b71c1a203',
+         ['    from ..graph.locusgraph import SVLocusSetOptions',
+          '    from ..graph.native_set import NativeLocusSet']),
+        (_T_ARGS, '275bcc766c055e56',
+         '78e7e8775773d7a1'),
+        (_T_ARGS, '5a8fdd0747fb6b40',
+         ['    args = ap.parse_args(argv)',
+          '    native_core.load()']),
+        (_T_IMPORT, '08a73e5b71c1a203',
+         ['    from ..graph.locusgraph import SVLocusSetOptions',
+          '    from ..graph.native_set import NativeLocusSet']),
+        (_T_RETURN, '786ee546c39633f3',
+         ['    out = {']),
+        (_T_RETURN, 'acccf07e85881e3e',
+         ['    }',
+          '    print(json.dumps(out), flush=True)']),
+        (_T_RETURN, 'e3b0c44298fc1c14',
+         ['    return out']),
+    ],
+    "tools/bench_reduce.py": [
+        (_T_DOC, '19f8f5629e51b1fe',
+         'e2df093bf7a837f7'),
+        (_T_DOC, 'e3b0c44298fc1c14',
+         '1d5de2a5caa511ad'),
+        (_T_IMPORT, 'c517577851c489e4',
+         []),
+        (_T_IMPORT, '9da317d2e00b579e',
+         ['from .. import native_core',
+          'from .soak_graph import build']),
+        (_T_ARGS, '275bcc766c055e56',
+         '0bc2b2201732da27'),
+        (_T_ARGS, '5a8fdd0747fb6b40',
+         'bf814c941b9d1bfb'),
+        (_T_IMPORT, '83f90a53cec9ba72',
+         ['    from ..workflow.run import merge_saved_graphs_native']),
+        (_T_WORKDIR, '1467415f22ea3ab4',
+         '69100221cc0e8b71'),
+        (_T_IMPORT, 'ad82c84842545fff',
+         ['    from ..graph.locusgraph import SVLocusSet']),
+        (_T_RETURN, '5b6b90fc03be97e6',
+         ['    print(json.dumps(out), flush=True)']),
+        (_T_RETURN, 'e3b0c44298fc1c14',
+         ['    return out']),
+    ],
+    "tools/bench_graphbuild.py": [
+        (_T_DOC, '0edd39f211d79446',
+         '65cfa927b2faa68e'),
+        (_T_IMPORT, 'c517577851c489e4',
+         []),
+        (_T_IMPORT, 'deae7a750ef4ef15',
+         ['from .. import native_core']),
+        (_T_ARGS, '1d3c46501ee45c77',
+         'd5f26340c6c42dca'),
+        (_T_ARGS, '5a8fdd0747fb6b40',
+         '7a2871836e50f942'),
+        (_T_IMPORT, '264784adba27caa0',
+         '717a6e1548cd0275'),
+        (_T_WORKDIR, 'e3b0c44298fc1c14',
+         ['        import shutil']),
+        (_T_WORKDIR, '4b002bb0fbb1356a',
+         'e6da60af9b94d103'),
+        (_T_WORKDIR, '6414229c820c6010',
+         ['        shutil.rmtree(tmp)']),
+        (_T_RETURN, '786ee546c39633f3',
+         ['    out = {']),
+        (_T_RETURN, 'acccf07e85881e3e',
+         ['    }',
+          '    print(json.dumps(out), flush=True)',
+          '    return out']),
+    ],
+    "tools/bench_edges.py": [
+        (_T_DOC, 'cb1301d56128c214',
+         '70c79853b2415ff8'),
+        (_T_IMPORT, 'c517577851c489e4',
+         []),
+        (_T_IMPORT, 'deae7a750ef4ef15',
+         ['from .. import native_core',
+          'from .bench_wgs_at_scale import device_label']),
+        (_T_ARGS, '1d3c46501ee45c77',
+         '168af33a76ab26ce'),
+        (_T_ARGS, '5a8fdd0747fb6b40',
+         '42d07c9d923c3f0d'),
+        (_T_DEVICE, 'fe50b4b0044d3f4a',
+         'bd3c057ac977dce0'),
+        (_T_DEVICE, '3893211f4c084cdf',
+         'e238527d8593f489'),
+        (_T_DEVICE, '4c39991f41883c6d',
+         'd52a417627deaf0f'),
+        (_T_RETURN, '786ee546c39633f3',
+         ['    out = {']),
+        (_T_DEVICE, 'bd942004ffa3c01b',
+         '87c848db7501a1d7'),
+    ],
+    "tools/bench_repeats.py": [
+        (_T_DOC, 'b82b49361877f659',
+         ['repeats_check_<tag>.json under --results-dir.']),
+        (_T_DOC, '09ca5efa0d193a09',
+         '3479aad6e757c877'),
+        (_T_REPEATS, '46393a56c2577f65',
+         '38e3e160e078a8a6'),
+        (_T_REPEATS, 'e3b0c44298fc1c14',
+         '6284667e31157170'),
+        (_T_REPEATS, '4697ac9ce48c8116',
+         ['    out = os.path.join(args.work_dir, f"reps_s{seed}")',
+          '    run_dir = f"{out}.run_{args.device_scoring}"',
+          '    shutil.rmtree(run_dir, ignore_errors=True)',
+          '    mod = "manta_tpu_torch.tools.wgs_workload"']),
+        (_T_REPEATS, '44762542b5a48c18',
+         'bd58cd65b7c3e5a5'),
+        (_T_REPEATS, 'e3b0c44298fc1c14',
+         '2bed0a57ea6b35b5'),
+        (_T_REPEATS, 'acc9b30937050cc1',
+         '74cde3bd9242dcf4'),
+        (_T_REPEATS, 'ee43ec8c0ca41e0c',
+         ['    for rec in seeds:']),
+        (_T_REPEATS, 'db402e4721cffeea',
+         ['    return {']),
+        (_T_REPEATS, 'e9a575f2fc56bfbe',
+         'a79e1b18578db90f'),
+        (_T_RETURN, 'e8fe0b827b160134',
+         'cc2738c01b121ecb'),
+    ],
+}
+
+
 def _path(name: str) -> str:
     """'io' -> 'io/__init__.py', 'core.cigar' -> 'core/cigar.py'."""
     path = name.replace(".", "/")
@@ -194,15 +363,20 @@ def drift(original: str, copy: str, allowed) -> list[str]:
     a = original.splitlines(keepends=True)
     b = copy.splitlines(keepends=True)
     want = [(old if isinstance(old, str) else _digest(_text(old)),
-             _text(new)) for _reason, old, new in allowed]
+             new if isinstance(new, str) else _text(new))
+            for _reason, old, new in allowed]
     seen, found = set(), []
     matcher = difflib.SequenceMatcher(None, a, b, autojunk=False)
     for tag, i1, i2, j1, j2 in matcher.get_opcodes():
         if tag == "equal":
             continue
-        hunk = (_digest("".join(a[i1:i2])), "".join(b[j1:j2]))
-        if hunk in want:
-            seen.add(want.index(hunk))
+        copy = "".join(b[j1:j2])
+        hunk = (_digest("".join(a[i1:i2])), copy)
+        if hunk not in want:       # a long copy side is listed by digest
+            hunk = (hunk[0], _digest(copy))
+        listed = [k for k, w in enumerate(want) if w == hunk]
+        if listed:      # a hunk listed twice is seen twice
+            seen.add(next((k for k in listed if k not in seen), listed[0]))
         else:
             found.append(f"original lines {i1 + 1}-{i2} (digest "
                          f"{hunk[0]}), copy lines {j1 + 1}-{j2}:\n- "
@@ -230,6 +404,17 @@ def test_copy_equals_its_original_but_for_the_listed_hunks(path):
     found = drift(_read("manta_tpu", path), _read("manta_tpu_torch", path),
                   ALLOWED.get(path, []))
     assert not found, f"{path}:\n" + "\n".join(found)
+
+
+@pytest.mark.parametrize("path", sorted(TWINS))
+def test_twin_equals_its_original_but_for_the_listed_hunks(path):
+    found = drift(_read("", TWINS[path]), _read("manta_tpu_torch", path),
+                  TWIN_ALLOWED[path])
+    assert not found, f"{path}:\n" + "\n".join(found)
+
+
+def test_every_twin_has_its_listed_hunks():
+    assert set(TWIN_ALLOWED) == set(TWINS)
 
 
 @pytest.mark.parametrize("side", ("original", "copy"))

@@ -10,6 +10,7 @@ imports JAX, which a GPU host may not have, so on the card run:
 """
 
 import gzip
+import json
 import os
 import re
 import subprocess
@@ -662,3 +663,50 @@ def test_bench_measure_device_on_the_card(cuda):
     assert dev["device_k1_launches"] > 0
     assert cuda_jumpscore.KERNEL_LAUNCHES["jump_score"] - before == \
         dev["device_k1_launches"]
+
+
+# ---- the phase-2 rate bench (manta_tpu_torch/tools/bench_edges.py)
+
+@pytest.fixture
+def bench_edges_runs(cuda, tmp_path, demo_fasta):
+    """tools.bench_edges with scoring off and jump at -j 1 on a 16-tile
+    high-span BAM, each in a process of its own: {mode: (line, tumorSV
+    body, stderr)}."""
+    from manta_tpu_torch.tools import stress_workload
+    repo, _demo, fasta = demo_fasta
+    bam, fa, _reads = stress_workload.generate(
+        16, str(tmp_path / "h"), depth_frac=0.2, strip_sa=True,
+        demo_fasta=fasta)
+    out = {}
+    for mode in ("off", "jump"):
+        run_dir = tmp_path / f"run_{mode}"
+        proc = subprocess.run(
+            [sys.executable, "-m", "manta_tpu_torch.tools.bench_edges",
+             "--bam", bam, "--fasta", fa, "-j", "1", "--device-scoring",
+             mode, "--run-dir", str(run_dir)],
+            capture_output=True, text=True, cwd=repo, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        with gzip.open(run_dir / "results" / "variants" / "tumorSV.vcf.gz",
+                       "rt") as f:
+            body = [ln for ln in f if not ln.startswith("#")]
+        out[mode] = json.loads(line[-1]), body, proc.stderr
+    return out
+
+
+def test_bench_edges_jump_launches_k1(bench_edges_runs):
+    line, _body, err = bench_edges_runs["jump"]
+    assert line["device_scoring_resolved"] == "jump"
+    assert line["device"] != "cpu"
+    assert line["contig_jobs"] > 0
+    assert line["k1_launches"] >= 1
+    assert line["k1_launches"] == line["dispatches"]
+    assert re.search(r"device-dispatch pid=\d+: .* (\d+) kernel launches",
+                     err)
+
+
+def test_bench_edges_jump_edges_and_body_equal_off(bench_edges_runs):
+    off, jump = bench_edges_runs["off"], bench_edges_runs["jump"]
+    assert jump[0]["edges"] == off[0]["edges"] > 0
+    assert jump[1] == off[1] and len(off[1]) > 0
+    assert off[0]["k1_launches"] == off[0]["dispatches"] == 0

@@ -143,3 +143,79 @@ def test_load_uses_the_host_libdeflate_when_present():
         pytest.skip("this host has no libdeflate.so.0")
     assert native_core.ensure_libdeflate() is None
     assert native_core.load().mt_bgzf_inflate_batch is not None
+
+
+_LOADER = r"""
+import json, os, sys
+repo, build_dir = sys.argv[1:3]
+sys.path.insert(0, repo)
+from manta_tpu_torch import _build
+_build.BUILD_DIR = build_dir
+from manta_tpu_torch import _native
+sys.stdin.read()                  # start line: every process at once
+lib = _native.get_lib()
+g = lib.mt_graph_new(2, 3, 0.0, 1)
+lib.mt_graph_free(g)
+path = _native._core_path()
+with open(path, "rb") as f:
+    size = len(f.read())
+print(json.dumps({"compiled": "libmanta_core" in _build.BUILD_SECONDS,
+                  "path": path, "size": size}))
+"""
+
+
+def _native_tree():
+    """Every file under native/: (size, mtime in ns, bytes)."""
+    root = os.path.join(REPO, "native")
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = (
+                    os.stat(path).st_mtime_ns, f.read())
+    return out
+
+
+def test_concurrent_loads_build_the_core_once(tmp_path):
+    """More processes than cores load the port's native core at once
+    from an empty build directory: exactly one compiles it, every one
+    loads and calls a complete library, no temporary file is left, and
+    nothing under native/ changes."""
+    build_dir = str(tmp_path / "build")
+    before = _native_tree()
+    procs = [subprocess.Popen([sys.executable, "-c", _LOADER, REPO,
+                               build_dir], stdin=subprocess.PIPE,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for _ in range((os.cpu_count() or 4) + 2)]
+    outs = []
+    for p in procs:
+        p.stdin.close()
+    for p in procs:
+        out, err = p.stdout.read(), p.stderr.read()
+        assert p.wait(timeout=300) == 0, err[-3000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    assert sum(o["compiled"] for o in outs) == 1
+    assert len({o["path"] for o in outs}) == 1
+    path = outs[0]["path"]
+    assert os.path.dirname(path) == build_dir
+    assert {o["size"] for o in outs} == {os.path.getsize(path)}
+    assert not [n for n in os.listdir(build_dir) if n.endswith(".tmp")]
+    assert _native_tree() == before
+
+
+def test_core_is_keyed_by_the_source_content(tmp_path, monkeypatch):
+    """The library's name carries a digest of native/manta_core.cpp, so
+    a stale mtime cannot pass an old build for a new source."""
+    import hashlib
+
+    from manta_tpu_torch import _build, _native
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    with open(os.path.join(REPO, "native", "manta_core.cpp"), "rb") as f:
+        key = hashlib.sha256(f.read()).hexdigest()[:16]
+    stale = tmp_path / f"libmanta_core.{'0' * 16}.so"
+    stale.write_bytes(b"")
+    path = _native._core_path()
+    assert path == os.path.join(str(tmp_path), f"libmanta_core.{key}.so")
+    assert os.path.getsize(path) > 0 and stale.read_bytes() == b""

@@ -42,6 +42,11 @@ COPIED = (
     "tools.svloci",
 )
 
+# the port's twins of the JAX-free scripts of benchmarks/ (same file name)
+BENCH_TWINS = ("tools.soak_graph", "tools.bench_reduce",
+               "tools.bench_graphbuild", "tools.bench_edges",
+               "tools.bench_repeats")
+
 # the JAX modules of manta_tpu/parallel/ that the port has as torch twins
 PARALLEL_TWINS = ("parallel.mesh", "parallel.scan_parallel",
                   "parallel.mesh_scoring", "parallel.phase1_mesh",
@@ -131,7 +136,7 @@ def test_every_module_imports_without_the_jax_package():
     out = json.loads(_run(_IMPORT_ALL)[-1])
     assert out["refused"]
     assert out["foreign"] == []
-    for name in COPIED + PARALLEL_TWINS + (
+    for name in COPIED + PARALLEL_TWINS + BENCH_TWINS + (
             "tools.device_timing", "workflow.run", "align.device_jumpscore",
             "scoring.device_scan", "graft_entry"):
         assert f"manta_tpu_torch.{name}" in out["modules"]
@@ -241,6 +246,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     for root, _dirs, files in os.walk(os.path.join(REPO, "manta_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 50
+    for name in BENCH_TWINS:
+        assert os.path.join(REPO, "manta_tpu_torch",
+                            name.replace(".", os.sep) + ".py") in paths
     for path in paths:
         with open(path) as f:
             assert not pattern.search(f.read()), path
