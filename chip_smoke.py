@@ -9,8 +9,10 @@ contig jump scoring (--device-scoring jump), the device split-read scan
 (tools.bench_wgs_at_scale, the truth checker of tools.wgs_workload,
 tools.bench), the benchmark twins (tools.bench_edges, bench_graphbuild,
 soak_graph, bench_reduce, bench_repeats), the kernel-timing entry point
-(python -m manta_tpu_torch.tools.device_timing) and the multi-device dry
-run (manta_tpu_torch.graft_entry.dryrun_multichip):
+(python -m manta_tpu_torch.tools.device_timing), the multi-device dry
+run (manta_tpu_torch.graft_entry.dryrun_multichip) and the calling modes
+beyond germline and somatic DNA (RNA, joint germline at ten samples,
+tumor-only, --rescore):
 
 1. environment: torch and CUDA versions, the card's name and power
    limit, the native core, and no JAX anywhere in the process;
@@ -44,8 +46,9 @@ run (manta_tpu_torch.graft_entry.dryrun_multichip):
    scoring off, jump, exact and mxu on CUDA; the somatic VCF body
    equals the oracle's (byte for byte; mxu at call level);
 6. WGS-shaped: a seeded germline workload (python -m
-   manta_tpu_torch.tools.wgs_workload, in a subprocess) through the
-   port's workflow with scoring off, jump,
+   manta_tpu_torch.tools.wgs_workload, in a subprocess started in the
+   background after phase 1, as are the generators of 6b and 6d)
+   through the port's workflow with scoring off, jump,
    exact and mxu; the diploid VCF bodies of off, jump and exact are
    identical and each device path launched its kernels; then exact at
    -j 2 through the CLI, whose body and chromosome depths equal the
@@ -66,7 +69,8 @@ run (manta_tpu_torch.graft_entry.dryrun_multichip):
    manta_tpu_torch.tools.stress_workload, in a subprocess: 1,157,120
    reads, about three contigs a junction) through the workflow's command
    line with scoring off, jump at the default edge chunk and jump at
-   MANTA_TPU_EDGE_CHUNK=256; the tumor VCF bodies are identical, each
+   MANTA_TPU_EDGE_CHUNK=256, the three at once (one host core each);
+   the tumor VCF bodies are identical, each
    jump run scored at least 1,000 contig jobs, every one of its
    dispatches through the jump kernel by the child's own count; and a
    child that only imports torch and makes a CUDA context, for the
@@ -81,6 +85,22 @@ run (manta_tpu_torch.graft_entry.dryrun_multichip):
    WGS-shaped size with 40 repeat anchors, jump then exact on the same
    workload (records identical but for walls and device work; K1
    launched in jump, K3 in exact);
+6d. calling modes, after the benchmark twins: RNA fusion mode (--rna)
+   on the demo tumor BAM through run_workflow with scoring off, jump and
+   exact (identical rnaSV bodies; K1 launched in no mode, since RNA mode
+   never defers the spanning path; K3 at RNA's ~50 kb targets, scan tier
+   57,344, and at the widest such call K3 against its plain form on the
+   card, in chunks of reads, and the native scan, bit for bit, with its
+   device time, bound and the router's wall); ten-sample joint germline
+   (python -m manta_tpu_torch.tools.wgs_workload --samples 10) through
+   the command line at -j 8 with off, jump and exact, then the truth
+   checker resumed on the three run directories at once (identical diploid
+   bodies and check lines; K1 launched in jump and K3 in exact, counted
+   in the workers' exit lines); tumor-only on the WGS-shaped BAM with
+   off, jump and exact, checked in tumor mode; and --rescore of the
+   exact ten-sample run (the graph untouched, the candidates rewritten,
+   the same body, K3 launched); walls, phase walls and peak memory of
+   every run;
 7. the timing entry point, python -m manta_tpu_torch.tools.device_timing
    --kernel all --json, in a subprocess: its records, and its launch
    counts (all three kernels launched); jumpalign's two records, the
@@ -181,6 +201,20 @@ REPEATS_ARGS = ("--seeds", "3", "--chroms", "2", "--mb", "4", "--anchors",
                 "40", "--jobs", "8")
 GRAPH_COUNTS = ("reads", "loci", "nodes", "edges")
 BOUNDED_ROUNDS = (3, 5)      # benchmarks/device_timing.py:359
+# the calling-modes phase: RNA on the demo tumor BAM, ten-sample joint
+# germline from the port's generator (WGS_ARGS a sample, about 2.8 M
+# reads; at 2 x 2 Mb no candidate of the ten samples assembles two
+# contigs and K1 never launches), tumor-only on the WGS-shaped BAM, and
+# a rescore; the command-line runs at the card host's 8 cores
+CALLING_MODES = ("off", "jump", "exact")
+JOINT_SAMPLES = 10
+JOINT_ARGS = ("--samples", str(JOINT_SAMPLES), "--chroms", "2", "--mb", "4",
+              "--depth", "35", "--seed", "7")
+HOST_JOBS = "8"
+# RNA mode widens reference windows by 25,000 bases a side
+# (candidates/refiner.py:769): its split scans reach scan tier 57,344
+RNA_MIN_TP = 50_000
+RNA_PLAIN_CHUNK = 64         # reads a call of the plain form in the hold
 # the timing tool's jumpalign shape (benchmarks/bench_jumpalign.py:51)
 JUMPALIGN_SHAPE = (512, 200, 700)
 # the card's published peaks (NVIDIA's data sheet, H100 SXM, 700 W):
@@ -221,11 +255,13 @@ class _RefuseJax:
 sys.meta_path.insert(0, _RefuseJax())
 """
 CHILDREN = []                # the argv of every child process started
+BACKGROUND = []              # the children started in the background
+T_START = time.perf_counter()
 
 
-def run_child(argv, env=None) -> subprocess.CompletedProcess:
-    """Run ``python <argv>`` (``-m module args`` or ``-c code args``)
-    from the checkout's root behind the guard, its output captured."""
+def _child_cmd(argv) -> list:
+    """``python -c`` running ``argv`` (``-m module args`` or ``-c code
+    args``) behind the guard."""
     kind, what, *rest = argv
     if kind == "-m":
         code = (_GUARD + "import runpy\n"
@@ -236,12 +272,46 @@ def run_child(argv, env=None) -> subprocess.CompletedProcess:
     else:
         raise ValueError(f"run_child takes -m or -c, not {kind!r}")
     CHILDREN.append(argv)
-    return subprocess.run([sys.executable, "-c", code, *rest],
-                          capture_output=True, text=True, cwd=REPO, env=env)
+    return [sys.executable, "-c", code, *rest]
+
+
+def run_child(argv, env=None) -> subprocess.CompletedProcess:
+    """Run ``python <argv>`` (``-m module args`` or ``-c code args``)
+    from the checkout's root behind the guard, its output captured."""
+    return subprocess.run(_child_cmd(argv), capture_output=True, text=True,
+                          cwd=REPO, env=env)
+
+
+def start_child(argv, log: str, env=None) -> subprocess.Popen:
+    """``run_child``'s child started in the background, its stdout and
+    stderr to ``log`` and ``log``.err; ``main`` stops it if it is still
+    running when the smoke ends."""
+    os.makedirs(os.path.dirname(log), exist_ok=True)
+    with open(log, "w") as out, open(log + ".err", "w") as err:
+        proc = subprocess.Popen(_child_cmd(argv), stdout=out, stderr=err,
+                                cwd=REPO, env=env, text=True)
+    proc.log = log
+    proc.started = time.perf_counter()
+    BACKGROUND.append(proc)
+    return proc
+
+
+def wait_child(proc: subprocess.Popen, what: str) -> str:
+    """Wait for a ``start_child`` child; its stdout, or raise with its
+    output if it failed."""
+    rc = proc.wait()
+    with open(proc.log) as f:
+        out = f.read()
+    if rc != 0:
+        with open(proc.log + ".err") as f:
+            raise RuntimeError(f"{what} failed ({rc}):\n{out[-2000:]}\n"
+                               f"{f.read()[-3000:]}")
+    return out
 
 
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 def environment() -> str:
@@ -674,11 +744,15 @@ def _check_bounded_layouts(rng, args) -> None:
         return [(left + ins + right, seq(30) + left, right + seq(30)),
                 (seq(3), seq(40), seq(40))]
 
-    def check(t, nq, nr, rounds, lanes):
+    def plain(t, nq, nr, rounds):
+        return dj.batched_jump_score_flagged(*t, *args, nq, nr, nr, rounds)
+
+    def check(t, nq, rounds, lanes, want):
+        """The kernel in the layout of ``lanes`` against ``want``, the
+        plain form's (best, flag) on ``t``."""
         best, flag = cj.jump_score_flagged_cuda(*t, *args, rounds,
                                                 lanes=lanes)
-        p_best, p_flag = dj.batched_jump_score_flagged(*t, *args, nq, nr, nr,
-                                                       rounds)
+        p_best, p_flag = want
         if not (torch.equal(best, p_best) and torch.equal(flag, p_flag)):
             raise AssertionError(f"bounded kernel != plain at nq={nq}, "
                                  f"K={rounds}, lanes={lanes}")
@@ -694,15 +768,17 @@ def _check_bounded_layouts(rng, args) -> None:
                 nq = 32 * lanes - 1 + over
                 jobs = _jobs(rng, 4, nq, 2 * nq) + crafted(nq, rounds)
                 t = padded(jobs, nq, 2 * nq)
+                want = plain(t, nq, 2 * nq, rounds)
                 for named in (0, lanes):
-                    seen.add(check(t, nq, 2 * nq, rounds, named))
+                    seen.add(check(t, nq, rounds, named, want))
     nq, nr = 700, 600
     for rounds in (2, *BOUNDED_ROUNDS, 7):
         jobs = _jobs(rng, 12, nq, nr) + _jobs(rng, 4, 60, nr) \
             + crafted(nq, rounds)
         t = padded(jobs, nq, nr)
+        want = plain(t, nq, nr, rounds)
         for lanes in cj.LANE_CHOICES:
-            seen.add(check(t, nq, nr, rounds, lanes))
+            seen.add(check(t, nq, rounds, lanes, want))
     cj.raise_on_kernel_error()
     one = sorted(x for x in seen if x[1] == 1)
     many = sorted(x for x in seen if x[1] > 1)
@@ -766,6 +842,17 @@ def _split_inputs(batch, n_reads, per_read, Tp):
     valid = np.flatnonzero(lens > 1).astype(np.int64)
     return (synth, np.arange(n_reads, dtype=np.int64), targets, bp_ranges,
             valid)
+
+
+def _useful_terms(read_len, bp_beg, bp_end, target_len, Tp) -> int:
+    """The split scan's useful terms over (read, target) pairs, numpy
+    arrays that broadcast: n_k valid scan positions x read_len bases a
+    pair."""
+    import numpy as np
+    rl = np.asarray(read_len, np.int64)
+    start = np.maximum(0, bp_beg - rl + 2)
+    stop = np.maximum(0, np.minimum(bp_end, target_len - rl))
+    return int((np.clip(stop - start + 1, 0, Tp) * rl).sum())
 
 
 def check_split_kernel(card: str) -> dict:
@@ -846,11 +933,7 @@ def check_split_kernel(card: str) -> dict:
             "split_score_kernel")
         fin = np.isfinite(kb)
         max_err = max(max_err, float(np.abs(kb[fin] - pb[fin]).max()))
-        # useful terms: n_k valid positions x read_len bases per row
-        rl = arrays[5].astype(np.int64)
-        start = np.maximum(0, arrays[3] - rl + 2)
-        end = np.maximum(0, np.minimum(arrays[4], arrays[6] - rl))
-        terms = int((np.clip(end - start + 1, 0, Tp) * rl).sum())
+        terms = _useful_terms(arrays[5], arrays[3], arrays[4], arrays[6], Tp)
         k_ms = _time_ms(lambda: cuda_splitscore.split_score_cuda(*args))
         d_ms = _device_ms(lambda: cuda_splitscore.split_score_cuda(*args),
                           "split_score_kernel")
@@ -1136,28 +1219,38 @@ def _phase_walls(run_dir: str) -> str:
                      for i in range(len(marks) - 1))
 
 
-def wgs_workload(device: str = "cuda", wgs_args=WGS_ARGS):
-    """Returns the kernel launches of the main paths (jump_score from
-    the 'jump' run, split_score from the 'exact' run) and what the
-    measurement phase reuses: the workload's prefix, its reads and the
-    'off' run's directory."""
+WGS_WORK = os.path.join(WORK, "chip_smoke", "wgs")
+
+
+def start_wgs_generation(wgs_args=WGS_ARGS) -> subprocess.Popen:
+    """The WGS-shaped workload's generator in the background (a child:
+    the generator never shares a process that touched CUDA; it inherits
+    the native core's library path)."""
+    shutil.rmtree(WGS_WORK, ignore_errors=True)
+    os.makedirs(WGS_WORK)
+    return start_child(["-m", "manta_tpu_torch.tools.wgs_workload", "--out",
+                        os.path.join(WGS_WORK, "w"), *wgs_args],
+                       os.path.join(WGS_WORK, "gen.log"))
+
+
+def wgs_workload(gen: subprocess.Popen, device: str = "cuda"):
+    """The WGS-shaped workload (``gen``, the background child of
+    ``start_wgs_generation``) through the workflow. Returns the kernel
+    launches of the main paths (jump_score from the 'jump' run,
+    split_score from the 'exact' run) and what the measurement phase
+    reuses: the workload's prefix, its reads and the 'off' run's
+    directory."""
     phase("WGS-shaped germline workload: scoring off, jump, exact, mxu")
     from manta_tpu_torch.workflow.run import run_workflow
-    work = os.path.join(WORK, "chip_smoke", "wgs")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
+    work = WGS_WORK
     prefix = os.path.join(work, "w")
     t0 = time.perf_counter()
-    # a subprocess: the generator never shares a process that touched
-    # CUDA; it inherits the native core's library path
-    gen = run_child(["-m", "manta_tpu_torch.tools.wgs_workload", "--out",
-                     prefix, *wgs_args])
-    if gen.returncode != 0:
-        raise RuntimeError(f"workload generation failed:\n{gen.stdout}\n"
-                           f"{gen.stderr}")
-    reads = next(ln for ln in gen.stdout.splitlines() if " wrote " in ln)
-    print(f"generated in {time.perf_counter() - t0:.1f} s: "
-          f"{reads.split('] ', 1)[1]}", flush=True)
+    out = wait_child(gen, "workload generation")
+    reads = next(ln for ln in out.splitlines() if " wrote " in ln)
+    print(f"generated in the background: {reads.split('] ', 1)[1]} in "
+          f"{reads.split(']')[0][1:].strip()} by the generator's clock; "
+          f"waited {time.perf_counter() - t0:.1f} s for it here",
+          flush=True)
     n_reads = int(re.search(r"\((\d+) reads", reads).group(1))
 
     # the jump run's dispatches, as the scorer hands them to the
@@ -1273,61 +1366,86 @@ _DISPATCH_LINE = re.compile(
     r"kernel launches; calls by bucket \(B, nq, nr1, nr2\): (\{.*\})")
 
 
-def high_span(card: str) -> tuple[dict, dict]:
-    """The high-spanning-contig shape through the workflow's command
-    line, in child processes: scoring off, then jump at the default edge
-    chunk and at 256. Returns the jump kernel's launches in each jump
-    run, by the child's own count (its device-dispatch exit line), and
-    what the benchmark twins' phase reuses: the workload's prefix and
-    the 'off' run's graph edges."""
+HIGH_WORK = os.path.join(WORK, "chip_smoke", "high_span")
+
+
+def start_high_span_generation() -> subprocess.Popen:
+    """The high-span workload's generator in the background."""
+    shutil.rmtree(HIGH_WORK, ignore_errors=True)
+    os.makedirs(HIGH_WORK)
+    return start_child(["-m", "manta_tpu_torch.tools.stress_workload",
+                        "--tiles", str(HIGH_SPAN_TILES), "--out",
+                        os.path.join(HIGH_WORK, "h"), "--depth-frac", "0.2",
+                        "--strip-sa", "--demo-fasta", demo_fasta()],
+                       os.path.join(HIGH_WORK, "gen.log"))
+
+
+def _wait_all(procs: dict) -> dict:
+    """Wait for every ``start_child`` child of ``procs`` (name -> child);
+    returns name -> seconds from its start to its end."""
+    walls = {}
+    while len(walls) < len(procs):
+        for name, proc in procs.items():
+            if name not in walls and proc.poll() is not None:
+                walls[name] = time.perf_counter() - proc.started
+        time.sleep(0.1)
+    return walls
+
+
+def high_span(card: str, gen: subprocess.Popen) -> tuple[dict, dict]:
+    """The high-spanning-contig shape (``gen``, the background child of
+    ``start_high_span_generation``) through the workflow's command line:
+    scoring off, jump at the default edge chunk and jump at 256, the
+    three children at once (each is one process on one host core).
+    Returns the jump kernel's launches in each jump run, by the child's
+    own count (its device-dispatch exit line), and what the benchmark
+    twins' phase reuses: the workload's prefix and the 'off' run's graph
+    edges."""
     phase(f"high-span contigs: {HIGH_SPAN_TILES} demo tiles, depth 0.2, "
-          "no split-read evidence; scoring off, jump, jump at chunk 256")
-    work = os.path.join(WORK, "chip_smoke", "high_span")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
+          "no split-read evidence; scoring off, jump, jump at chunk 256, "
+          "at once")
+    work = HIGH_WORK
     prefix = os.path.join(work, "h")
     t0 = time.perf_counter()
-    gen = run_child(["-m", "manta_tpu_torch.tools.stress_workload",
-                     "--tiles", str(HIGH_SPAN_TILES), "--out", prefix,
-                     "--depth-frac", "0.2", "--strip-sa",
-                     "--demo-fasta", demo_fasta()])
-    if gen.returncode != 0:
-        raise RuntimeError(f"high-span generation failed:\n{gen.stdout}\n"
-                           f"{gen.stderr}")
-    reads = int(re.search(r": (\d+) reads across", gen.stdout).group(1))
+    out = wait_child(gen, "high-span generation")
+    reads = int(re.search(r": (\d+) reads across", out).group(1))
     if reads != HIGH_SPAN_READS:
         raise AssertionError(f"{reads} reads generated, wanted "
                              f"{HIGH_SPAN_READS}")
-    print(f"{gen.stdout.strip()} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    bodies, launches = {}, {}
+    print(f"{out.strip()} (in the background; waited "
+          f"{time.perf_counter() - t0:.1f} s for it here)", flush=True)
+    bodies, launches, procs = {}, {}, {}
     for mode, chunk in HIGH_SPAN_RUNS:
         name = f"{mode}" + (f"_chunk{chunk}" if chunk else "")
-        run_dir = os.path.join(work, f"run_{name}")
         env = dict(os.environ)
         env.pop("MANTA_TPU_EDGE_CHUNK", None)
         if chunk:
             env["MANTA_TPU_EDGE_CHUNK"] = str(chunk)
-        t0 = time.perf_counter()
-        cli = run_child(["-m", "manta_tpu_torch.workflow.run", "--tumor-bam",
-                         prefix + ".bam", "--reference", prefix + ".fa",
-                         "--run-dir", run_dir, "--exome", "-j", "1",
-                         "--device-scoring", mode], env=env)
-        wall = time.perf_counter() - t0
-        if cli.returncode != 0:
-            raise RuntimeError(f"high-span {name} failed:\n"
-                               f"{cli.stderr[-3000:]}")
+        procs[name] = start_child(
+            ["-m", "manta_tpu_torch.workflow.run", "--tumor-bam",
+             prefix + ".bam", "--reference", prefix + ".fa", "--run-dir",
+             os.path.join(work, f"run_{name}"), "--exome", "-j", "1",
+             "--device-scoring", mode],
+            os.path.join(work, f"run_{name}.log"), env=env)
+    walls = _wait_all(procs)
+    for mode, chunk in HIGH_SPAN_RUNS:
+        name = f"{mode}" + (f"_chunk{chunk}" if chunk else "")
+        run_dir = os.path.join(work, f"run_{name}")
+        wall = walls[name]
+        wait_child(procs[name], f"high-span {name}")
+        with open(procs[name].log + ".err") as f:
+            stderr = f.read()
         bodies[name] = _records(os.path.join(run_dir, "results", "variants",
                                              "tumorSV.vcf.gz"))
         with open(os.path.join(run_dir, "workspace",
                                "workflow_log.txt")) as f:
             edges = re.findall(r"processed (\d+) graph edges", f.read())
-        dispatch = _DISPATCH_LINE.findall(cli.stderr)
+        dispatch = _DISPATCH_LINE.findall(stderr)
         line = (f"{name:>13} -j 1: wall {wall:.2f} s, {edges[-1]} graph "
                 f"edges, {len(bodies[name])} tumor records; "
                 f"{_phase_walls(run_dir)}")
         if mode == "off":
-            if dispatch or "split-scan pid=" in cli.stderr:
+            if dispatch or "split-scan pid=" in stderr:
                 raise AssertionError("high-span off used the device")
             print(f"{line}; no device work", flush=True)
             edges_off = int(edges[-1])
@@ -1335,7 +1453,7 @@ def high_span(card: str) -> tuple[dict, dict]:
         if len(dispatch) != 1:
             raise AssertionError(f"high-span {name}: {len(dispatch)} "
                                  "device-dispatch lines, wanted 1:\n"
-                                 f"{cli.stderr[-3000:]}")
+                                 f"{stderr[-3000:]}")
         calls, jobs, rows, d_wall, first, k1, buckets = dispatch[0]
         launches[name] = int(k1)
         print(f"{line}; {calls} dispatches, {jobs} contig jobs, {rows} "
@@ -1503,6 +1621,431 @@ def bench_scripts(card: str, high: dict) -> dict:
             "repeats_exact": exact["k3_launches"]}
 
 
+# the child that runs the workflow's command line and samples its
+# process tree's memory (tools.bench_wgs_at_scale's sampler): its last
+# stdout line is the peaks, its stderr the workflow's and the workers'
+# (sampled, not ru_maxrss, which a child inherits from the smoke's own
+# process)
+_CLI_MEASURED = """
+import json
+import sys
+
+from manta_tpu_torch.tools.bench_wgs_at_scale import RssSampler
+from manta_tpu_torch.workflow import run
+
+with RssSampler(interval=1.0) as rss:
+    run.main(sys.argv[1:])
+anon = "rss_anon" in rss.sources
+print(json.dumps({
+    "peak_tree_rss_gb": round(rss.peak_total / 1e9, 2),
+    "peak_tree_anon_gb": round(rss.peak_anon / 1e9, 2) if anon else None,
+    "peak_process_anon_gb": (round(rss.peak_proc_anon / 1e9, 2) if anon
+                             else None)}))
+"""
+
+
+def _cli(what: str, args: list) -> dict:
+    """The workflow's command line with ``args`` in a child: its wall,
+    phase walls (of a run that did phases 0-2), peak memory and device
+    work (every process's exit line, tools/device_counts.py)."""
+    from manta_tpu_torch.tools.device_counts import parse_lines
+    t0 = time.perf_counter()
+    run = run_child(["-c", _CLI_MEASURED, *args])
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"{what} failed ({run.returncode}):\n"
+                           f"{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    run_dir = args[args.index("--run-dir") + 1]
+    return {"wall": wall, "stderr": run.stderr, "run_dir": run_dir,
+            "memory": _last_json(run.stdout), "work": parse_lines(run.stderr),
+            "phases": ("phases 0 and 1 reused" if "--rescore" in args
+                       else _phase_walls(run_dir))}
+
+
+def _check_work(what: str, mode: str, work: dict) -> None:
+    """Every contig dispatch through K1 and every split scan through K3,
+    counted in the processes that made them; nothing on the device with
+    scoring off, no split scan on it with jump."""
+    if work["k1_launches"] != work["dispatches"] or \
+            work["k3_launches"] != work["split_scans"]:
+        raise AssertionError(f"{what} ({mode}): {work['k1_launches']} K1 "
+                             f"launches for {work['dispatches']} dispatches,"
+                             f" {work['k3_launches']} K3 launches for "
+                             f"{work['split_scans']} split scans")
+    if mode == "off" and (work["dispatches"] or work["split_scans"]):
+        raise AssertionError(f"{what} (off) used the device: {work}")
+    if mode == "jump" and work["split_scans"]:
+        raise AssertionError(f"{what} (jump) ran device split scans")
+    if mode == "exact" and not work["k3_launches"] > 0:
+        raise AssertionError(f"{what} (exact): no K3 launch")
+
+
+def _describe_cli(mode: str, res: dict, records: int, kind: str) -> str:
+    w, m = res["work"], res["memory"]
+    return (f"{mode:>5}: wall {res['wall']:.2f} s, {records} {kind} "
+            f"records; {res['phases']}; peak memory: process tree RSS "
+            f"{m['peak_tree_rss_gb']} GB (file pages included), anonymous "
+            f"{m['peak_tree_anon_gb']} GB, anonymous of the largest process "
+            f"{m['peak_process_anon_gb']} GB; {w['device_processes']} "
+            f"device processes, {w['contig_jobs']} contig jobs in "
+            f"{w['dispatches']} dispatches, {w['k1_launches']} K1 launches, "
+            f"{w['split_scans']} split scans, {w['k3_launches']} K3 "
+            "launches")
+
+
+def _truth_checks(prefix: str, runs: dict, *extra) -> dict:
+    """The truth checker resumed on each finished run directory of
+    ``runs`` (name -> run directory), the children at once: name -> its
+    JSON line."""
+    procs = {name: start_child(
+        ["-m", "manta_tpu_torch.tools.wgs_workload", "--out", prefix,
+         "--check", "--run-dir", run_dir, *extra], run_dir + ".check.log")
+        for name, run_dir in runs.items()}
+    walls = _wait_all(procs)
+    lines = {}
+    for name, proc in procs.items():
+        out = wait_child(proc, f"truth check of {name}")
+        with open(proc.log + ".err") as f:
+            if "resume: reusing candidate generation" not in f.read():
+                raise AssertionError(f"the truth check of {name} did not "
+                                     "resume")
+        lines[name] = _last_json(out)
+        print(f"truth check of {name} ({walls[name]:.1f} s, resumed, "
+              f"{len(runs)} at once): {json.dumps(lines[name])}",
+              flush=True)
+    return lines
+
+
+def _same_checks(what: str, lines: dict) -> dict:
+    """The check lines of every mode equal but for the run's own wall,
+    memory and directory; returns the first without those."""
+    kept = {mode: {k: v for k, v in line.items()
+                   if k not in TRUTH_UNCOMPARED}
+            for mode, line in lines.items()}
+    first = next(iter(kept.values()))
+    if any(v != first for v in kept.values()) or not first["recall"] > 0:
+        raise AssertionError(f"{what}: the truth checks differ or score no "
+                             f"recall: {kept}")
+    return first
+
+
+def rna_mode(card: str, device: str = "cuda") -> dict:
+    """RNA fusion mode on the demo tumor BAM through run_workflow, scoring
+    off, jump and exact: identical rnaSV bodies, no K1 launch in any mode,
+    K3 at the RNA scan tier in exact; then K3 at one captured RNA call
+    against its plain form on the card and the native scan. Returns the
+    launches and the captured call's numbers."""
+    phase("calling modes (a): RNA on the demo tumor BAM, scoring off, jump, "
+          "exact")
+    from manta_tpu_torch.scoring import device_scan
+    from manta_tpu_torch.workflow.run import run_workflow
+    fasta = demo_fasta()
+    calls = []
+    scan_multi = device_scan.DeviceScanContext.scan_multi
+
+    def keeping(self, *a):
+        calls.append(a)
+        return scan_multi(self, *a)
+
+    bodies, counted = {}, {}
+    for mode in CALLING_MODES:
+        run_dir = os.path.join(WORK, "chip_smoke", f"rna_{mode}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        _reset_counts()
+        if mode == "exact":
+            device_scan.DeviceScanContext.scan_multi = keeping
+        t0 = time.perf_counter()
+        try:
+            run_workflow([os.path.join(DEMO, TUMOR_BAM)], [], fasta, run_dir,
+                         is_rna=True, use_device_scoring=mode, device=device,
+                         n_jobs=1, verbose=False)
+        finally:
+            device_scan.DeviceScanContext.scan_multi = scan_multi
+        wall = time.perf_counter() - t0
+        c = counted[mode] = _counts()
+        _check_counts("RNA", mode, c)
+        bodies[mode] = _records(os.path.join(run_dir, "results", "variants",
+                                             "rnaSV.vcf.gz"))
+        print(f"{mode:>5}: wall {wall:.2f} s, {len(bodies[mode])} rnaSV "
+              f"records; {_describe(c)}", flush=True)
+    for mode, body in bodies.items():
+        if body != bodies["off"] or len(body) < 4:
+            raise AssertionError(f"RNA: the rnaSV body of {mode} differs "
+                                 f"from off's or has under 4 records")
+    k1 = sum(c["jump"] + c["dispatch"]["calls"] for c in counted.values())
+    if k1:
+        raise AssertionError(f"RNA: {k1} K1 launches and dispatches; RNA "
+                             "mode never defers the spanning path")
+    tiers = [device_scan._bucket(max(map(len, a[4])) + 1) for a in calls]
+    if len(calls) != counted["exact"]["split"] or max(tiers) < RNA_MIN_TP:
+        raise AssertionError(f"RNA exact: {len(calls)} scans kept for "
+                             f"{counted['exact']['split']} K3 launches, "
+                             f"largest scan tier {max(tiers)}")
+    print(f"{card}; rnaSV body identical in off, jump and exact "
+          f"({len(bodies['off'])} records); K1 launches 0 in every mode: RNA "
+          "mode never defers the spanning path to the contig scorer "
+          "(manta_tpu_torch/candidates/refiner.py:727); exact: "
+          f"{len(calls)} split scans, {counted['exact']['split']} K3 "
+          f"launches, scan tiers {sorted(set(tiers))}, largest Tp "
+          f"{max(tiers)}", flush=True)
+    held = _hold_rna_call(card, calls, device)
+    return {"rna": k1, "rna_exact": counted["exact"]["split"], **held}
+
+
+def _hold_rna_call(card: str, calls: list, device: str) -> dict:
+    """K3 at the widest captured RNA call against its plain form on the
+    card (in chunks of reads, so that its (reads, n_scan) planes fit)
+    and the native host scan; its profiler device time, bound and the
+    router's wall for the call."""
+    import numpy as np
+    import torch
+    from manta_tpu_torch.align import device_splitscore as ds
+    from manta_tpu_torch.scoring import device_scan
+    from manta_tpu_torch.scoring.evidence import split_read_scan_multi
+    flank, batch, read_idx, qconv, targets, ranges = max(
+        calls, key=lambda a: (max(map(len, a[4])), len(a[2])))
+    read_idx = np.asarray(read_idx, np.int64)
+    Tp = device_scan._bucket(max(map(len, targets)) + 1)
+    n, t = len(read_idx), len(targets)
+    reads, quals, rlens = device_scan.stage_reads(batch, read_idx)
+    tgts = np.full((t, Tp), ord("N"), np.uint8)
+    for k, tg in enumerate(targets):
+        tgts[k, :len(tg)] = tg
+    beg = np.array([b for b, _e in ranges], np.int32)
+    end = np.array([e for _b, e in ranges], np.int32)
+    tlen = np.array([len(tg) for tg in targets], np.int32)
+    m, x = qconv.lut256()
+    r, q, rl, tg, b, e, tl, lm, lx = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        for a in (reads, quals, rlens, tgts, beg, end, tlen, m[:71], x[:71]))
+    args = (r, q, rl, tg, b, e, tl, flank, lm, lx, Tp)
+
+    def plain():
+        parts = [ds.batched_split_score_factored(
+            r[s:s + RNA_PLAIN_CHUNK], q[s:s + RNA_PLAIN_CHUNK],
+            rl[s:s + RNA_PLAIN_CHUNK], tg, b, e, tl, flank, lm, lx, Tp)
+            for s in range(0, n, RNA_PLAIN_CHUNK)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+
+    kb, kp = ds.split_score_factored(*args)
+    pb, pp = plain()
+    nb, np_ = split_read_scan_multi(flank, batch, read_idx, qconv, targets,
+                                    ranges)
+    if not (torch.equal(kb, pb) and torch.equal(kp, pp)):
+        bad = torch.nonzero((kb != pb) | (kp != pp))[:8].tolist()
+        raise AssertionError(f"RNA call: K3 != plain at {bad}")
+    if not (np.array_equal(kb.cpu().numpy(), nb)
+            and np.array_equal(kp.cpu().numpy(), np_)):
+        raise AssertionError("RNA call: K3 != the native scan")
+    d_ms = _device_ms(lambda: ds.split_score_factored(*args),
+                      "split_score_kernel")
+    p_ms = _time_ms(plain, runs=1)
+    ctx = device_scan.DeviceScanContext(device=device)
+    rb, rp = ctx.scan_multi(flank, batch, read_idx, qconv, targets, ranges)
+    if not (np.array_equal(rb, nb) and np.array_equal(rp, np_)):
+        raise AssertionError("RNA call: the router != the native scan")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ctx.scan_multi(flank, batch, read_idx, qconv, targets, ranges)
+        walls.append(time.perf_counter() - t0)
+    router_ms = statistics.median(walls) * 1e3
+    terms = _useful_terms(rlens[:, None], beg, end, tlen, Tp)
+    n_bytes = (reads.nbytes + quals.nbytes + tgts.nbytes
+               + 4 * (n + 3 * t) + 2 * 71 * 4 + 8 * n * t)
+    bound = _bound(n_bytes, SPLIT_OPS_PER_TERM * terms)
+    device_ms = "not measured" if d_ms is None else f"{d_ms:.5f} ms"
+    print(f"{card}; RNA call held ({n} reads x {t} targets of "
+          f"{tlen.tolist()} bases, read tier {reads.shape[1]}, scan tier "
+          f"{Tp}, {terms} useful terms): K3 == plain form on the card "
+          f"(in chunks of {RNA_PLAIN_CHUNK} reads) == native scan "
+          f"(tolerance: bit-equal); K3 device time {device_ms} (profiler), "
+          f"plain form {p_ms:.3f} ms (CUDA events), bound "
+          f"{bound['bound_ms']:.6f} ms by {bound['bound_by']}; the router's "
+          f"scan_multi {router_ms:.4f} ms a call (host clock, median of 5)",
+          flush=True)
+    return {"rna_tp": Tp, "rna_reads": n, "rna_ms": d_ms,
+            "rna_plain_ms": p_ms, "rna_bound_ms": bound["bound_ms"],
+            "rna_router_ms": router_ms}
+
+
+JOINT_WORK = os.path.join(WORK, "chip_smoke", "joint10")
+
+
+def start_joint_generation() -> subprocess.Popen:
+    """The ten-sample workload's generator, started in the background at
+    the beginning of the smoke: it simulates the samples one after the
+    other on one core (about 11 s a million reads on the card's host),
+    beside the phases before the calling modes."""
+    shutil.rmtree(JOINT_WORK, ignore_errors=True)
+    os.makedirs(JOINT_WORK)
+    return start_child(["-m", "manta_tpu_torch.tools.wgs_workload", "--out",
+                        os.path.join(JOINT_WORK, "j"), *JOINT_ARGS],
+                       os.path.join(JOINT_WORK, "gen.log"))
+
+
+def joint_germline(card: str, gen: subprocess.Popen) -> dict:
+    """Ten-sample joint germline from the port's generator (``gen``, the
+    background child of ``start_joint_generation``) through the command
+    line at -j 8, scoring off, jump and exact, each truth-checked
+    (resumed): identical diploid bodies and check lines, K1 launched in
+    jump and K3 in exact, counted in the workers. Returns the launches
+    and what the rescore reuses."""
+    phase(f"calling modes (b): {JOINT_SAMPLES}-sample joint germline "
+          f"(tools.wgs_workload {' '.join(JOINT_ARGS)}), -j {HOST_JOBS}, "
+          "scoring off, jump, exact; truth checks")
+    prefix = os.path.join(JOINT_WORK, "j")
+    t0 = time.perf_counter()
+    rc = gen.wait()
+    done = time.perf_counter()
+    with open(gen.log) as f:
+        out = f.read()
+    if rc != 0:
+        with open(gen.log + ".err") as f:
+            raise RuntimeError(f"joint generation failed ({rc}):\n{out}\n"
+                               f"{f.read()[-3000:]}")
+    per_sample = [int(n) for n in re.findall(r" wrote \S+ \((\d+) reads",
+                                             out)]
+    if len(per_sample) != JOINT_SAMPLES:
+        raise AssertionError(f"{len(per_sample)} BAMs generated")
+    took = re.findall(r"\[\s*([0-9.]+)s\] wrote", out)[-1]
+    print(f"generated {JOINT_SAMPLES} BAMs in the background: "
+          f"{sum(per_sample)} reads ({min(per_sample)}-{max(per_sample)} a "
+          f"sample) in {took} s by the generator's clock; waited "
+          f"{done - t0:.1f} s for it here", flush=True)
+    bams = []
+    for k in range(JOINT_SAMPLES):
+        bams += ["--bam", f"{prefix}.s{k}.bam"]
+    base = [*bams, "--reference", prefix + ".fa", "-j", HOST_JOBS]
+    runs, bodies = {}, {}
+    for mode in CALLING_MODES:
+        run_dir = os.path.join(JOINT_WORK, f"run_{mode}")
+        res = runs[mode] = _cli(f"joint {mode}", [
+            *base, "--run-dir", run_dir, "--device-scoring", mode])
+        _check_work("joint", mode, res["work"])
+        vcf = os.path.join(run_dir, "results", "variants", "diploidSV.vcf.gz")
+        bodies[mode] = _records(vcf)
+        with gzip.open(vcf, "rt") as f:
+            columns = next(ln for ln in f if ln.startswith("#CHROM"))
+        if len(columns.split("\t")[9:]) != JOINT_SAMPLES:
+            raise AssertionError(f"joint {mode}: sample columns {columns}")
+        print(_describe_cli(mode, res, len(bodies[mode]), "diploid"),
+              flush=True)
+    checks = _truth_checks(
+        prefix, {f"joint {mode}": runs[mode]["run_dir"]
+                 for mode in CALLING_MODES},
+        "--samples", str(JOINT_SAMPLES), "--jobs", HOST_JOBS)
+    for mode, body in bodies.items():
+        if body != bodies["off"]:
+            raise AssertionError(f"joint: the diploidSV body of {mode} "
+                                 "differs from off's")
+    first = _same_checks("joint", checks)
+    k1 = runs["jump"]["work"]["k1_launches"]
+    k3 = runs["exact"]["work"]["k3_launches"]
+    if not k1 > 0 or not k3 > 0:
+        raise AssertionError(f"joint: {k1} K1 launches in jump, {k3} K3 "
+                             "launches in exact")
+    print(f"{card}; joint germline, {JOINT_SAMPLES} samples: diploidSV "
+          f"body identical in off, jump and exact ({len(bodies['off'])} "
+          f"records); truth checks equal in every key but "
+          f"{list(TRUTH_UNCOMPARED)}: recall {first['recall']}, gt_acc "
+          f"{first['gt_acc']}, fp_records {first['fp_records']}, by_type "
+          f"{first['by_type']}; K1 {k1} launches (jump), K3 {k3} (exact)",
+          flush=True)
+    return {"joint10_jump": k1, "joint10_exact": k3, "base": base,
+            "run_exact": runs["exact"]["run_dir"],
+            "body": bodies["exact"]}
+
+
+def tumor_only(card: str, wgs: dict) -> dict:
+    """Tumor-only calling of the WGS-shaped BAM through the command line
+    at -j 8, scoring off, jump and exact, each truth-checked in tumor mode
+    (resumed): identical tumor bodies and check lines. Returns K1's
+    launches in jump and K3's in exact."""
+    phase(f"calling modes (c): tumor-only, the WGS-shaped BAM, -j "
+          f"{HOST_JOBS}, scoring off, jump, exact; truth checks (tumor)")
+    work = os.path.join(WORK, "chip_smoke", "tumor_only")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    prefix = wgs["prefix"]
+    runs, bodies = {}, {}
+    for mode in CALLING_MODES:
+        run_dir = os.path.join(work, f"run_{mode}")
+        res = runs[mode] = _cli(f"tumor-only {mode}", [
+            "--tumor-bam", prefix + ".bam", "--reference", prefix + ".fa",
+            "-j", HOST_JOBS, "--run-dir", run_dir, "--device-scoring", mode])
+        _check_work("tumor-only", mode, res["work"])
+        bodies[mode] = _records(os.path.join(run_dir, "results", "variants",
+                                             "tumorSV.vcf.gz"))
+        print(_describe_cli(mode, res, len(bodies[mode]), "tumor"),
+              flush=True)
+    checks = _truth_checks(
+        prefix, {f"tumor-only {mode}": runs[mode]["run_dir"]
+                 for mode in CALLING_MODES},
+        "--mode", "tumor", "--jobs", HOST_JOBS)
+    for mode, body in bodies.items():
+        if body != bodies["off"]:
+            raise AssertionError(f"tumor-only: the tumorSV body of {mode} "
+                                 "differs from off's")
+    first = _same_checks("tumor-only", checks)
+    k1 = runs["jump"]["work"]["k1_launches"]
+    k3 = runs["exact"]["work"]["k3_launches"]
+    print(f"{card}; tumor-only: tumorSV body identical in off, jump and "
+          f"exact ({len(bodies['off'])} records); truth checks (tumor) "
+          f"equal but for {list(TRUTH_UNCOMPARED)}: recall "
+          f"{first['recall']}, fp_records {first['fp_records']}, by_type "
+          f"{first['by_type']}; K1 {k1} launches (jump), K3 {k3} (exact)",
+          flush=True)
+    return {"tumor_only_jump": k1, "tumor_only_exact": k3}
+
+
+def rescore(card: str, joint: dict) -> dict:
+    """--rescore of the exact ten-sample run directory with exact:
+    phase 1's graph untouched, the candidates written again, the bodies
+    the first run's, K3 launched. Returns the rescore's launches."""
+    phase("calling modes (d): --rescore of the ten-sample exact run")
+    run_dir = joint["run_exact"]
+    ws = os.path.join(run_dir, "workspace")
+    graph = os.path.join(ws, "svLocusGraph.npz")
+    cand = os.path.join(ws, "candidateSV.vcf")
+    graph_before, cand_before = os.stat(graph).st_mtime_ns, \
+        os.stat(cand).st_mtime_ns
+    res = _cli("rescore", [*joint["base"], "--run-dir", run_dir,
+                           "--device-scoring", "exact", "--rescore"])
+    _check_work("rescore", "exact", res["work"])
+    body = _records(os.path.join(run_dir, "results", "variants",
+                                 "diploidSV.vcf.gz"))
+    print(_describe_cli("exact", res, len(body), "diploid"), flush=True)
+    if os.stat(graph).st_mtime_ns != graph_before:
+        raise AssertionError("rescore: svLocusGraph.npz was rewritten")
+    if os.stat(cand).st_mtime_ns == cand_before:
+        raise AssertionError("rescore: candidateSV.vcf was not rewritten")
+    if body != joint["body"]:
+        raise AssertionError("rescore: the diploidSV body differs from the "
+                             "first exact run's")
+    print(f"{card}; rescore: svLocusGraph.npz untouched (mtime), "
+          f"candidateSV.vcf rewritten, diploidSV body == the first run's "
+          f"({len(body)} records); K1 {res['work']['k1_launches']}, K3 "
+          f"{res['work']['k3_launches']} launches", flush=True)
+    return {"rescore_k1": res["work"]["k1_launches"],
+            "rescore_k3": res["work"]["k3_launches"]}
+
+
+def calling_modes(card: str, wgs: dict, joint_gen: subprocess.Popen) -> dict:
+    """The calling modes the main path has not run: RNA, ten-sample joint
+    germline (its workload from ``joint_gen``), tumor-only and --rescore.
+    Returns every launch count and the RNA call's numbers."""
+    t0 = time.perf_counter()
+    out = rna_mode(card)
+    joint = joint_germline(card, joint_gen)
+    out.update(joint10_jump=joint["joint10_jump"],
+               joint10_exact=joint["joint10_exact"])
+    out.update(tumor_only(card, wgs))
+    out.update(rescore(card, joint))
+    print(f"calling modes: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
 # the truth checker's keys that are not the calls: the run's own wall,
 # memory and directory
 TRUTH_UNCOMPARED = ("wall_s", "peak_rss_gb", "run_dir")
@@ -1561,24 +2104,8 @@ def measurement_entry_points(card: str, wgs: dict) -> dict:
         raise AssertionError(f"at-scale artifact: {art['device']!r}, "
                              f"{art['device_scoring_resolved']!r}")
 
-    checked = {}
-    for name, d in (("off", run_off), ("at_scale_jump", run_dir)):
-        t0 = time.perf_counter()
-        chk = run_child(["-m", "manta_tpu_torch.tools.wgs_workload", "--out",
-                         prefix, "--check", "--run-dir", d])
-        if chk.returncode != 0:
-            raise RuntimeError(f"truth check of {name} failed:\n"
-                               f"{chk.stderr[-3000:]}")
-        if "resume: reusing candidate generation" not in chk.stderr:
-            raise AssertionError(f"the truth check of {name} did not resume")
-        checked[name] = _last_json(chk.stdout)
-        print(f"truth check of {name} ({time.perf_counter() - t0:.1f} s, "
-              f"resumed): {json.dumps(checked[name])}", flush=True)
-    a, b = ({k: v for k, v in line.items() if k not in TRUTH_UNCOMPARED}
-            for line in checked.values())
-    if a != b or not a["recall"] > 0:
-        raise AssertionError(f"truth checks differ or score no recall: "
-                             f"{a} vs {b}")
+    a = _same_checks("the truth checks", _truth_checks(
+        prefix, {"off": run_off, "at_scale_jump": run_dir}))
     print(f"truth checks equal in every key but {list(TRUTH_UNCOMPARED)}; "
           f"recall {a['recall']}, gt_acc {a['gt_acc']}, fp_records "
           f"{a['fp_records']}", flush=True)
@@ -1777,17 +2304,32 @@ def main() -> None:
         sys.exit("chip_smoke.py: run it from the root of a checkout "
                  "(manta_tpu_torch/ not found beside it)")
     sys.path.insert(0, REPO)
-    t_start = time.perf_counter()
+    try:
+        smoke()
+    finally:
+        for proc in BACKGROUND:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def smoke() -> None:
     card = environment()
+    # the workloads' generators, one host core each, beside the phases
+    # before the ones that read them
+    wgs_gen = start_wgs_generation()
+    high_gen = start_high_span_generation()
+    joint_gen = start_joint_generation()
     build()
     measured = {"jump_score": check_jump_kernel(),
                 "jump_score_bounded": check_bounded_kernel(),
                 "split_score": check_split_kernel(card)}
     demo_workflow()
-    launches, wgs = wgs_workload()
+    launches, wgs = wgs_workload(wgs_gen)
     measured_launches = measurement_entry_points(card, wgs)
-    high_span_launches, high = high_span(card)
+    high_span_launches, high = high_span(card, high_gen)
     twin_launches = bench_scripts(card, high)
+    modes = calling_modes(card, wgs, joint_gen)
     launches["jump_score_bounded"] = device_timing()["jump_score_bounded"]
     dry_launches = dry_run()
     foreign = sorted(m for m in sys.modules
@@ -1798,7 +2340,7 @@ def main() -> None:
     import torch
     print(f"\nno jax, jaxlib or manta_tpu module imported in this process "
           f"and in its {len(CHILDREN)} child processes (each behind the "
-          f"guard); total {time.perf_counter() - t_start:.1f} s")
+          f"guard); total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
@@ -1819,9 +2361,26 @@ def main() -> None:
             # the benchmark twins: bench_edges on the high-span BAM and
             # the jump repeats seed, each counted in its processes
             "launches_bench_edges": twin_launches["bench_edges"],
-            "launches_repeats": twin_launches["repeats"]}
+            "launches_repeats": twin_launches["repeats"],
+            # the calling modes: RNA (every mode; none by design), the
+            # ten-sample jump run, tumor-only jump and the exact rescore,
+            # each counted in the processes that ran them
+            "launches_rna": modes["rna"],
+            "launches_joint10_jump": modes["joint10_jump"],
+            "launches_tumor_only": modes["tumor_only_jump"],
+            "launches_rescore": modes["rescore_k1"]}
            if name == "jump_score" else {}),
-        **({"launches_repeats_exact": twin_launches["repeats_exact"]}
+        **({"launches_repeats_exact": twin_launches["repeats_exact"],
+            # the calling modes' exact runs; then K3 at the widest RNA
+            # call (scan tier rna_tp): profiler device time, plain form,
+            # bound and the router's wall for the call
+            "launches_rna_exact": modes["rna_exact"],
+            "launches_joint10_exact": modes["joint10_exact"],
+            "launches_tumor_only": modes["tumor_only_exact"],
+            "launches_rescore": modes["rescore_k3"],
+            **{key: modes[key] for key in (
+                "rna_tp", "rna_reads", "rna_ms", "rna_plain_ms",
+                "rna_bound_ms", "rna_router_ms")}}
            if name == "split_score" else {}),
         **{key: measured[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
