@@ -39,7 +39,10 @@ tumor-only, --rescore):
    bit-equal float32 scores and equal positions at the bucketed shapes
    the device scan context gives the kernel, and all equal the native
    host scan on real demo reads; kernel, plain form and native scan are
-   timed; then the router itself (DeviceScanContext.scan_multi) on a
+   timed; at 512 pairs K3's library yardstick, the port's matmul form
+   (device_splitscore_mxu, two torch.bmm) on the same tensors, by
+   profiler device time, with its largest difference from K3; then the
+   router itself (DeviceScanContext.scan_multi) on a
    typical call: equal to the native scan, one host-to-device and one
    device-to-host copy a call in the profiler's trace, ms a call;
 5. demo: the tumor/normal demo through the port's workflow with
@@ -49,7 +52,9 @@ tumor-only, --rescore):
    manta_tpu_torch.tools.wgs_workload, in a subprocess started in the
    background after phase 1, as are the generators of 6b and 6d)
    through the port's workflow with scoring off, jump,
-   exact and mxu; the diploid VCF bodies of off, jump and exact are
+   exact and mxu, jump and exact each inside the timing tool's profiler
+   window (tools.device_timing's workflow mode, 6e); the diploid VCF
+   bodies of off, jump and exact are
    identical and each device path launched its kernels; then exact at
    -j 2 through the CLI, whose body and chromosome depths equal the
    -j 1 runs'; the real contig jobs of the jump run go through the
@@ -69,7 +74,10 @@ tumor-only, --rescore):
    manta_tpu_torch.tools.stress_workload, in a subprocess: 1,157,120
    reads, about three contigs a junction) through the workflow's command
    line with scoring off, jump at the default edge chunk and jump at
-   MANTA_TPU_EDGE_CHUNK=256, the three at once (one host core each);
+   MANTA_TPU_EDGE_CHUNK=256, the three at once (one host core each; the
+   default chunk's jump run through python -m
+   manta_tpu_torch.tools.device_timing --kernel workflow --workload
+   high-span, the same run_workflow at -j 1 in a profiler window);
    the tumor VCF bodies are identical, each
    jump run scored at least 1,000 contig jobs, every one of its
    dispatches through the jump kernel by the child's own count; and a
@@ -91,7 +99,9 @@ tumor-only, --rescore):
    never defers the spanning path; K3 at RNA's ~50 kb targets, scan tier
    57,344, and at the widest such call K3 against its plain form on the
    card, in chunks of reads, and the native scan, bit for bit, with its
-   device time, bound and the router's wall); ten-sample joint germline
+   device time, bound, the router's wall and the matmul form on the same
+   tensors; the exact run inside the profiler window); ten-sample joint
+   germline
    (python -m manta_tpu_torch.tools.wgs_workload --samples 10) through
    the command line at -j 8 with off, jump and exact, then the truth
    checker resumed on the three run directories at once (identical diploid
@@ -101,6 +111,15 @@ tumor-only, --rescore):
    exact ten-sample run (the graph untouched, the candidates rewritten,
    the same body, K3 launched); walls, phase walls and peak memory of
    every run;
+6e. kernels on the main paths: for the profiled runs (WGS-shaped jump
+   and exact, high-span jump, RNA exact), each kernel's launches in the
+   trace and by its wrapper, equal to each other and to the calls of
+   the seam that reaches it (the contig dispatcher, the split router),
+   its device time in all and a launch, no more than that seam's wall,
+   its useful and padded work, bound and share of it, and its copies
+   each way; phase 2's wall and the device's busy share of it (a run
+   whose trace in this process lost a launch is made again in a child
+   through the tool, its body held against this run's);
 7. the timing entry point, python -m manta_tpu_torch.tools.device_timing
    --kernel all --json, in a subprocess: its records, and its launch
    counts (all three kernels launched); jumpalign's two records, the
@@ -122,7 +141,9 @@ larger of the bytes (each input once, each output once) over 3.35 TB/s
 and the int32/float32 operations of the rows' own lengths over 67 Top/s
 (NVIDIA's H100 SXM data sheet), computed from the timed inputs; the
 jump kernels' rows also hold the bound at the card's real rate of int32
-maxima (bound_ms_int32).
+maxima (bound_ms_int32), and its readings on each main path
+(main_paths: launches, device ms, bound, share, copies and the busy
+share of phase 2).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the exit code is non-zero and that line is not printed. Without a CUDA
@@ -844,17 +865,6 @@ def _split_inputs(batch, n_reads, per_read, Tp):
             valid)
 
 
-def _useful_terms(read_len, bp_beg, bp_end, target_len, Tp) -> int:
-    """The split scan's useful terms over (read, target) pairs, numpy
-    arrays that broadcast: n_k valid scan positions x read_len bases a
-    pair."""
-    import numpy as np
-    rl = np.asarray(read_len, np.int64)
-    start = np.maximum(0, bp_beg - rl + 2)
-    stop = np.maximum(0, np.minimum(bp_end, target_len - rl))
-    return int((np.clip(stop - start + 1, 0, Tp) * rl).sum())
-
-
 def check_split_kernel(card: str) -> dict:
     """Split-scan kernel vs plain form (on the card) vs the native host
     scan, at the bucketed shapes the device scan context gives the
@@ -933,7 +943,8 @@ def check_split_kernel(card: str) -> dict:
             "split_score_kernel")
         fin = np.isfinite(kb)
         max_err = max(max_err, float(np.abs(kb[fin] - pb[fin]).max()))
-        terms = _useful_terms(arrays[5], arrays[3], arrays[4], arrays[6], Tp)
+        terms = device_scan.useful_terms(arrays[5], arrays[3], arrays[4],
+                                         arrays[6])
         k_ms = _time_ms(lambda: cuda_splitscore.split_score_cuda(*args))
         d_ms = _device_ms(lambda: cuda_splitscore.split_score_cuda(*args),
                           "split_score_kernel")
@@ -967,11 +978,43 @@ def check_split_kernel(card: str) -> dict:
             bound = _bound(n_bytes, SPLIT_OPS_PER_TERM * terms)
             print(f"    bound {bound['bound_ms']:.6f} ms by "
                   f"{bound['bound_by']}", flush=True)
-            reported = {"ms": k_ms, "plain_ms": p_ms, **bound}
+            reported = {"ms": k_ms, "plain_ms": p_ms, **bound,
+                        **_library_yardstick(fargs, fb, fp, f_ms)}
         if si == SPLIT_TYPICAL:
             _check_scan_router(batch, idx, valid, qconv, targets, ranges)
     reported["max_abs_err"] = max_err
     return reported
+
+
+def _library_yardstick(args, best, pos, k3_ms) -> dict:
+    """K3's library yardstick: the port's matmul form of the split scan
+    (device_splitscore_mxu, two torch.bmm a call) on K3's factored call
+    ``args``, the same tensors, timed by profiler device time (all its
+    kernels, over a call); its largest difference from K3's ``best``
+    over the pairs both score. A call that does not fit in device memory
+    is recorded as such, with what it asked for."""
+    import torch
+    from manta_tpu_torch.tools import device_timing as dt
+    call, diff = dt.mxu_on_k3_inputs(args)
+    try:
+        err, pos_differ, pairs = diff(best, pos)
+        times = dt.Timer(args[0].device, 10)(call)
+    except torch.cuda.OutOfMemoryError as e:
+        torch.cuda.empty_cache()
+        print(f"    library yardstick (matmul form): does not fit: {e}",
+              flush=True)
+        return {"library_ms": None, "library_fit": str(e).split("\n")[0]}
+    ms = times["sec_per_iter"] * 1e3
+    print(f"    library yardstick, the matmul form (two torch.bmm) on the "
+          f"same tensors: {ms:.5f} ms a call ({times['timed_by']}: all "
+          f"its kernels' device time on the card; "
+          f"{times.get('event_sec_per_iter', 0) * 1e3:.4f} ms by CUDA "
+          "events), K3 "
+          + ("not measured" if k3_ms is None else f"{k3_ms:.5f} ms")
+          + f"; largest |difference| from K3 {err:.3g} over {pairs} pairs "
+          f"(finite in both, A/C/G/T/N only), {pos_differ} positions "
+          "differ", flush=True)
+    return {"library_ms": ms, "library_max_abs_diff": err}
 
 
 def _check_scan_router(batch, idx, valid, qconv, targets, ranges) -> None:
@@ -1074,6 +1117,10 @@ def _reset_counts():
                      cuda_splitscore.KERNEL_LAUNCHES):
         for k in launches:
             launches[k] = 0
+    for work in (*cuda_jumpscore.KERNEL_WORK.values(),
+                 *cuda_splitscore.KERNEL_WORK.values()):
+        for k in work:
+            work[k] = 0
     dj.PLAIN_CALLS["cuda"] = 0
     ds.PLAIN_CALLS["cuda"] = 0
     dj.DISPATCH_BUCKETS.clear()
@@ -1219,6 +1266,63 @@ def _phase_walls(run_dir: str) -> str:
                      for i in range(len(marks) - 1))
 
 
+# the kernels where the workflows launch them: path -> the timing tool's
+# workflow records of its run (a line a kernel, then phase 2's)
+MAIN_PATHS = {}
+# path -> the kernel the path is there for
+MAIN_PATH_KERNELS = {"wgs_jump": "jump_score",
+                     "high_span_jump": "jump_score",
+                     "wgs_exact": "split_score", "rna_exact": "split_score"}
+
+
+# the VCF a workload's run writes
+VCF_OF = {"wgs": "diploidSV", "high-span": "tumorSV", "rna": "rnaSV"}
+
+
+def _tool_records(stdout: str) -> list:
+    """The records of a workflow-mode run of the timing tool, from its
+    output: a line a kernel, then phase 2's (the launch counts dropped)."""
+    return [json.loads(ln) for ln in stdout.splitlines()
+            if ln.startswith('{"') and "kernel_launches" not in ln]
+
+
+def _profiled(path: str, workload: str, mode: str, run_dir: str, run,
+              device: str, card: str, prefix: str | None = None) -> None:
+    """``run()``, a workflow at -j 1 in this process, inside the timing
+    tool's profiler window (tools.device_timing --kernel workflow); its
+    records kept under ``path`` in MAIN_PATHS. The profiler of a
+    long-lived process can lose a trace (seen on the card: no event of
+    an RNA run late in the smoke); where this one lost a launch, the
+    same run is made again in a child through the tool's workflow mode,
+    whose first trace holds them, and its body must equal this run's."""
+    from manta_tpu_torch.tools import device_timing as dt
+    reading = dt.profile_workflow(run, device)
+    records = dt.workflow_records(
+        reading, dt.phase2_wall(run_dir), card if device == "cuda" else "cpu",
+        workload, mode)
+    lost = [r["kernel"] for r in records[:-1]
+            if r["launches_profiler"] not in (None, r["launches_wrapper"])]
+    if lost:
+        child_dir = run_dir + "_profiled"
+        print(f"{path}: this process's trace lost launches of {lost}; the "
+              "same run in a child: python -m manta_tpu_torch.tools."
+              "device_timing --kernel workflow", flush=True)
+        run = run_child(["-m", "manta_tpu_torch.tools.device_timing",
+                         "--kernel", "workflow", "--workload", workload,
+                         "--mode", mode, "--run-dir", child_dir]
+                        + (["--prefix", prefix] if prefix else []))
+        if run.returncode != 0:
+            raise RuntimeError(f"device_timing --kernel workflow ({path}) "
+                               f"failed:\n{run.stdout[-2000:]}\n"
+                               f"{run.stderr[-3000:]}")
+        records = _tool_records(run.stdout)
+        vcf = os.path.join("results", "variants", VCF_OF[workload] + ".vcf.gz")
+        if _records(os.path.join(child_dir, vcf)) != \
+                _records(os.path.join(run_dir, vcf)):
+            raise AssertionError(f"{path}: the child's body differs")
+    MAIN_PATHS[path] = records
+
+
 WGS_WORK = os.path.join(WORK, "chip_smoke", "wgs")
 
 
@@ -1233,7 +1337,7 @@ def start_wgs_generation(wgs_args=WGS_ARGS) -> subprocess.Popen:
                        os.path.join(WGS_WORK, "gen.log"))
 
 
-def wgs_workload(gen: subprocess.Popen, device: str = "cuda"):
+def wgs_workload(gen: subprocess.Popen, card: str, device: str = "cuda"):
     """The WGS-shaped workload (``gen``, the background child of
     ``start_wgs_generation``) through the workflow. Returns the kernel
     launches of the main paths (jump_score from the 'jump' run,
@@ -1271,11 +1375,17 @@ def wgs_workload(gen: subprocess.Popen, device: str = "cuda"):
         _reset_counts()
         if mode == "jump":
             dj._score = keeping_score
+        run = lambda m=mode, d=run_dir: run_workflow(
+            [prefix + ".bam"], [], prefix + ".fa", d, use_device_scoring=m,
+            device=device, n_jobs=1, verbose=False)
         t0 = time.perf_counter()
         try:
-            run_workflow([prefix + ".bam"], [], prefix + ".fa", run_dir,
-                         use_device_scoring=mode, device=device, n_jobs=1,
-                         verbose=False)
+            if mode in ("jump", "exact"):
+                # the kernels' device time where this run launches them
+                _profiled(f"wgs_{mode}", "wgs", mode, run_dir, run, device,
+                          card, prefix)
+            else:
+                run()
         finally:
             dj._score = score
         wall = time.perf_counter() - t0
@@ -1396,7 +1506,9 @@ def high_span(card: str, gen: subprocess.Popen) -> tuple[dict, dict]:
     """The high-spanning-contig shape (``gen``, the background child of
     ``start_high_span_generation``) through the workflow's command line:
     scoring off, jump at the default edge chunk and jump at 256, the
-    three children at once (each is one process on one host core).
+    three children at once (each is one process on one host core). The
+    default chunk's jump run goes through the timing tool's workflow
+    mode, the same run_workflow at -j 1 in a profiler window.
     Returns the jump kernel's launches in each jump run, by the child's
     own count (its device-dispatch exit line), and what the benchmark
     twins' phase reuses: the workload's prefix and the 'off' run's graph
@@ -1421,18 +1533,28 @@ def high_span(card: str, gen: subprocess.Popen) -> tuple[dict, dict]:
         env.pop("MANTA_TPU_EDGE_CHUNK", None)
         if chunk:
             env["MANTA_TPU_EDGE_CHUNK"] = str(chunk)
-        procs[name] = start_child(
-            ["-m", "manta_tpu_torch.workflow.run", "--tumor-bam",
-             prefix + ".bam", "--reference", prefix + ".fa", "--run-dir",
-             os.path.join(work, f"run_{name}"), "--exome", "-j", "1",
-             "--device-scoring", mode],
-            os.path.join(work, f"run_{name}.log"), env=env)
+        run_dir = os.path.join(work, f"run_{name}")
+        if name == "jump":
+            # the same run_workflow at -j 1 as the command line's, through
+            # the timing tool's workflow mode: in a profiler window
+            argv = ["-m", "manta_tpu_torch.tools.device_timing", "--kernel",
+                    "workflow", "--workload", "high-span", "--mode", mode,
+                    "--prefix", prefix, "--run-dir", run_dir]
+        else:
+            argv = ["-m", "manta_tpu_torch.workflow.run", "--tumor-bam",
+                    prefix + ".bam", "--reference", prefix + ".fa",
+                    "--run-dir", run_dir, "--exome", "-j", "1",
+                    "--device-scoring", mode]
+        procs[name] = start_child(argv, os.path.join(work, f"run_{name}.log"),
+                                  env=env)
     walls = _wait_all(procs)
     for mode, chunk in HIGH_SPAN_RUNS:
         name = f"{mode}" + (f"_chunk{chunk}" if chunk else "")
         run_dir = os.path.join(work, f"run_{name}")
         wall = walls[name]
-        wait_child(procs[name], f"high-span {name}")
+        out = wait_child(procs[name], f"high-span {name}")
+        if name == "jump":
+            MAIN_PATHS["high_span_jump"] = _tool_records(out)
         with open(procs[name].log + ".err") as f:
             stderr = f.read()
         bodies[name] = _records(os.path.join(run_dir, "results", "variants",
@@ -1486,6 +1608,65 @@ def high_span(card: str, gen: subprocess.Popen) -> tuple[dict, dict]:
     print(f"{card}; tumorSV body identical: {', '.join(bodies)} "
           f"({len(first)} records)", flush=True)
     return launches, {"prefix": prefix, "edges_off": edges_off}
+
+
+def main_paths(card: str) -> dict:
+    """The kernels where the workflows launch them, from the records the
+    profiled runs left in MAIN_PATHS (the WGS-shaped jump and exact runs
+    and RNA exact in this process, the high-span jump run in its child):
+    on each run every kernel's launches in the trace equal its wrapper's
+    count and the calls of the seam that reaches it, its device time is
+    no more than that seam's wall (the dispatcher's, the router's), and
+    the kernel the path is there for launched; each run's body equals
+    its 'off' run's (held where the run was made). Returns kernel ->
+    path -> the readings the kernels line carries."""
+    phase("kernels on the main paths: device time, launches and bound "
+          "where the workflows launch them (tools.device_timing --kernel "
+          "workflow)")
+    out = {name: {} for name in KERNELS}
+    for path, kernel in MAIN_PATH_KERNELS.items():
+        records = MAIN_PATHS[path]
+        for rec in records:
+            rec.pop("run_dir", None)
+            print(json.dumps(rec), flush=True)
+        phase2 = records[-1]
+        for rec in records[:-1]:
+            name = rec["kernel"]
+            if rec["device_ms"] is None:        # a rehearsal on the cpu
+                continue
+            if rec["launches_wrapper"] != rec["calls"]:
+                raise AssertionError(f"{path}: {name} {rec['calls']} calls, "
+                                     f"{rec['launches_wrapper']} launches")
+            if rec["launches_profiler"] != rec["launches_wrapper"]:
+                raise AssertionError(
+                    f"{path}: {name} {rec['launches_profiler']} launches in "
+                    f"the trace, {rec['launches_wrapper']} by its wrapper")
+            if rec["device_ms"] > rec["path_wall_s"] * 1e3:
+                raise AssertionError(
+                    f"{path}: {name} {rec['device_ms']} device ms over its "
+                    f"seam's wall {rec['path_wall_s']} s")
+            out[name][path] = {key: rec[key] for key in (
+                "launches_wrapper", "device_ms", "device_ms_per_launch",
+                "bound_ms", "share_of_bound", "h2d", "d2h")}
+            out[name][path]["busy_share"] = phase2["busy_share"]
+        rec = next(r for r in records[:-1] if r["kernel"] == kernel)
+        if not rec["calls"]:
+            raise AssertionError(f"{path}: {kernel} never called")
+        ms = rec["device_ms"]
+        print(f"{card}; {path}: {kernel} {rec['launches_wrapper']} launches "
+              f"(trace {rec['launches_profiler']}), device "
+              + ("not measured" if ms is None else
+                 f"{ms:.4f} ms ({rec['device_ms_per_launch']:.5f} a launch)")
+              + f", bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}"
+              + ("" if ms is None else
+                 f" ({rec['share_of_bound']:.2%} reached)")
+              + f"; its seam's wall {rec['path_wall_s']:.4f} s; phase 2 "
+              f"{phase2['phase2_wall_s']:.2f} s, device busy "
+              + ("not measured" if ms is None else
+                 f"{phase2['device_busy_ms']:.3f} ms "
+                 f"({phase2['busy_share']:.4%})")
+              + "; body == off's", flush=True)
+    return out
 
 
 # a small process that starts the code of its first argument in a child
@@ -1754,11 +1935,16 @@ def rna_mode(card: str, device: str = "cuda") -> dict:
         _reset_counts()
         if mode == "exact":
             device_scan.DeviceScanContext.scan_multi = keeping
+        run = lambda m=mode, d=run_dir: run_workflow(
+            [os.path.join(DEMO, TUMOR_BAM)], [], fasta, d, is_rna=True,
+            use_device_scoring=m, device=device, n_jobs=1, verbose=False)
         t0 = time.perf_counter()
         try:
-            run_workflow([os.path.join(DEMO, TUMOR_BAM)], [], fasta, run_dir,
-                         is_rna=True, use_device_scoring=mode, device=device,
-                         n_jobs=1, verbose=False)
+            if mode == "exact":
+                _profiled("rna_exact", "rna", mode, run_dir, run, device,
+                          card)
+            else:
+                run()
         finally:
             device_scan.DeviceScanContext.scan_multi = scan_multi
         wall = time.perf_counter() - t0
@@ -1841,6 +2027,9 @@ def _hold_rna_call(card: str, calls: list, device: str) -> dict:
     d_ms = _device_ms(lambda: ds.split_score_factored(*args),
                       "split_score_kernel")
     p_ms = _time_ms(plain, runs=1)
+    print(f"RNA call ({n} reads x {t} targets, scan tier {Tp}):",
+          flush=True)
+    library = _library_yardstick(args, kb, kp, d_ms)
     ctx = device_scan.DeviceScanContext(device=device)
     rb, rp = ctx.scan_multi(flank, batch, read_idx, qconv, targets, ranges)
     if not (np.array_equal(rb, nb) and np.array_equal(rp, np_)):
@@ -1851,7 +2040,7 @@ def _hold_rna_call(card: str, calls: list, device: str) -> dict:
         ctx.scan_multi(flank, batch, read_idx, qconv, targets, ranges)
         walls.append(time.perf_counter() - t0)
     router_ms = statistics.median(walls) * 1e3
-    terms = _useful_terms(rlens[:, None], beg, end, tlen, Tp)
+    terms = device_scan.useful_terms(rlens[:, None], beg, end, tlen)
     n_bytes = (reads.nbytes + quals.nbytes + tgts.nbytes
                + 4 * (n + 3 * t) + 2 * 71 * 4 + 8 * n * t)
     bound = _bound(n_bytes, SPLIT_OPS_PER_TERM * terms)
@@ -1867,7 +2056,8 @@ def _hold_rna_call(card: str, calls: list, device: str) -> dict:
           flush=True)
     return {"rna_tp": Tp, "rna_reads": n, "rna_ms": d_ms,
             "rna_plain_ms": p_ms, "rna_bound_ms": bound["bound_ms"],
-            "rna_router_ms": router_ms}
+            "rna_router_ms": router_ms,
+            **{f"rna_{k}": v for k, v in library.items()}}
 
 
 JOINT_WORK = os.path.join(WORK, "chip_smoke", "joint10")
@@ -2202,7 +2392,8 @@ def device_timing() -> dict:
     want = {"matmul_bf16_ref", "jump_score_dp", "jump_score_cuda",
             "split_scan_exact", "split_scan_cuda",
             "split_scan_cuda_factored", "split_scan_mxu",
-            "scan_router_exact", "jumpalign"} | {
+            "split_scan_mxu_on_k3_inputs", "scan_router_exact",
+            "jumpalign"} | {
         f"jump_score_cuda_bounded_k{k}" for k in BOUNDED_ROUNDS}
     if not want <= names:
         raise AssertionError(f"missing records: {sorted(want - names)}")
@@ -2325,11 +2516,12 @@ def smoke() -> None:
                 "jump_score_bounded": check_bounded_kernel(),
                 "split_score": check_split_kernel(card)}
     demo_workflow()
-    launches, wgs = wgs_workload(wgs_gen)
+    launches, wgs = wgs_workload(wgs_gen, card)
     measured_launches = measurement_entry_points(card, wgs)
     high_span_launches, high = high_span(card, high_gen)
     twin_launches = bench_scripts(card, high)
     modes = calling_modes(card, wgs, joint_gen)
+    on_paths = main_paths(card)
     launches["jump_score_bounded"] = device_timing()["jump_score_bounded"]
     dry_launches = dry_run()
     foreign = sorted(m for m in sys.modules
@@ -2380,11 +2572,17 @@ def smoke() -> None:
             "launches_rescore": modes["rescore_k3"],
             **{key: modes[key] for key in (
                 "rna_tp", "rna_reads", "rna_ms", "rna_plain_ms",
-                "rna_bound_ms", "rna_router_ms")}}
+                "rna_bound_ms", "rna_router_ms", "rna_library_ms",
+                "rna_library_max_abs_diff", "rna_library_fit")
+               if key in modes}}
            if name == "split_score" else {}),
         **{key: measured[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "bound_ms_int32") if key in measured[name]}}
+            "library_ms", "library_max_abs_diff", "bound_ms_int32")
+           if key in measured[name]},
+        # where the workflows launch it: launches, device ms, bound and
+        # share, copies, the device's busy share of phase 2 (a run each)
+        "main_paths": on_paths[name]}
         for name, (source, replaces) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,15 @@ import torch
 # one per kernel launch: "jump_score" by jump_score_cuda,
 # "jump_score_bounded" by jump_score_flagged_cuda, and nowhere else
 KERNEL_LAUNCHES = {"jump_score": 0, "jump_score_bounded": 0}
+# the work the workflow's contig dispatcher hands each kernel (on the
+# CPU, its plain form), counted on the host from the jobs' own lengths
+# and the padded shapes, never read back from the device: ``useful``
+# cells (query length x both references' lengths a job), the ``padded``
+# cells the launch covers (B x nq x (nr1 + nr2)) and the ``bytes`` of
+# its inputs and output, each once (``align.device_jumpscore``
+# ``count_work``). No workflow launches the bounded kernel.
+KERNEL_WORK = {name: {"useful": 0, "padded": 0, "bytes": 0}
+               for name in KERNEL_LAUNCHES}
 
 _LIB = None
 _BOUNDED_LIB = None

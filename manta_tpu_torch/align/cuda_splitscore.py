@@ -32,6 +32,13 @@ import torch
 # one per kernel launch made by split_score_cuda or
 # split_score_factored_cuda, and nowhere else
 KERNEL_LAUNCHES = {"split_score": 0}
+# the work the split-scan router hands the kernel (on the CPU, its plain
+# form), counted on the host from the call's own lengths: ``useful``
+# terms (valid scan positions x read length over the (read, target)
+# pairs), the ``padded`` terms of the call's tiers (n x t x Tp x Lp) and
+# the ``bytes`` of its inputs and outputs, each once
+# (``scoring.device_scan.count_work``)
+KERNEL_WORK = {"split_score": {"useful": 0, "padded": 0, "bytes": 0}}
 
 _LIB = None
 _LN_RANDOM = -math.log(4.0)

@@ -46,7 +46,8 @@ import numpy as np
 import torch
 
 from .cuda_jumpscore import (
-    KERNEL_LAUNCHES, jump_score_cuda, raise_on_kernel_error, rerun_flagged,
+    KERNEL_LAUNCHES, KERNEL_WORK, jump_score_cuda, raise_on_kernel_error,
+    rerun_flagged,
 )
 
 BAD = -10000
@@ -552,6 +553,18 @@ def pad_jobs(jobs, rows: int):
     return q, ql, r1, r1l, r2, r2l
 
 
+def count_work(jobs, shape, kernel: str = "jump_score") -> None:
+    """Add one launch's work to ``KERNEL_WORK[kernel]``: the jobs'
+    useful cells, sum of len(query) x (len(ref1) + len(ref2)), and the
+    padded launch ``shape`` (B, nq, nr1, nr2): its cells, and its bytes
+    (int32 query and references, three lengths in, a score out)."""
+    B, nq, nr1, nr2 = shape
+    work = KERNEL_WORK[kernel]
+    work["useful"] += sum(len(q) * (len(r1) + len(r2)) for q, r1, r2 in jobs)
+    work["padded"] += B * nq * (nr1 + nr2)
+    work["bytes"] += 4 * B * (nq + nr1 + nr2 + 4)
+
+
 # dispatch accounting: every bucketed-scorer call records its wall time;
 # reported once per process at exit as a "[manta-tpu-torch]
 # device-dispatch ..." stderr line
@@ -574,6 +587,7 @@ def _register_dispatch_report():
 
     def report():
         s = DISPATCH_STATS
+        work = KERNEL_WORK["jump_score"]
         if s["calls"]:
             print(f"[manta-tpu-torch] device-dispatch pid={_os.getpid()}: "
                   f"{s['calls']} calls, {s['jobs']} jobs, "
@@ -581,7 +595,9 @@ def _register_dispatch_report():
                   f"first {s['first_wall']:.4f}s (incl. kernel build), "
                   f"{KERNEL_LAUNCHES['jump_score']} kernel launches; "
                   f"calls by bucket (B, nq, nr1, nr2): "
-                  f"{dict(sorted(DISPATCH_BUCKETS.items()))}",
+                  f"{dict(sorted(DISPATCH_BUCKETS.items()))}; work: "
+                  f"{work['useful']} useful cells, {work['padded']} "
+                  f"padded cells, {work['bytes']} bytes",
                   file=_sys.stderr, flush=True)
             s["calls"] = 0        # once per process
     at_process_exit(report)
@@ -618,6 +634,7 @@ def make_bucketed_scorer(scores, jump_score: int, device):
         s["wall"] += dt
         shape = (Bp, *(int(t[i].shape[1]) for i in (0, 2, 4)))
         DISPATCH_BUCKETS[shape] = DISPATCH_BUCKETS.get(shape, 0) + 1
+        count_work(jobs, shape)
         return res
 
     return scorer

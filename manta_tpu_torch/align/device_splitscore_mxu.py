@@ -55,6 +55,22 @@ def _float32_bmm(a, b):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def from_factored(reads, quals, read_len, targets, bp_beg, bp_end,
+                  target_len):
+    """The exact scan's factored inputs (``split_score_factored``: n
+    reads (n, L) and read_len (n,) against t targets (t, T) with their
+    bp_beg, bp_end and target_len (t,)) as this form's: one junction
+    group a target, each holding every read (expanded views of the same
+    tensors, no copy), the scan grid from target position 0. Returns the
+    arguments of ``junction_split_score`` up to ``flank_score_size``;
+    with n_scan = T it scores every position the exact scan does."""
+    t = targets.shape[0]
+    n, L = reads.shape
+    s0 = torch.zeros(t, dtype=torch.int32, device=reads.device)
+    return (reads.expand(t, n, L), quals.expand(t, n, L), targets, s0,
+            bp_beg, bp_end, read_len.expand(t, n), target_len)
+
+
 def junction_split_score(reads, quals, targets, s0, bp_beg, bp_end,
                          read_len, target_len, flank_score_size,
                          ln_match_lut, ln_mism_lut, n_scan: int):

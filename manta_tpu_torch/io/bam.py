@@ -598,8 +598,8 @@ class BamReader:
     # parsed-batch cache tiers follow the BGZF block LRU
     # (bgzf._default_cache_blocks): small reference-like budgets by
     # default — the node-scaled large tiers measured strictly worse on
-    # the WGS shape and at parity on deep exomes (docs/PERF_r04.md,
-    # PERF_r03.md) — with MANTA_TPU_NODE_GB ≥ 64 opting back up
+    # the WGS shape and at parity on deep exomes — with
+    # MANTA_TPU_NODE_GB ≥ 64 opting back up
     try:
         from .bgzf import configured_node_gb
         _gb = configured_node_gb()

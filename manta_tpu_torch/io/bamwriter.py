@@ -463,10 +463,10 @@ def merge_runs_to_bam(run_prefixes: list[str], path: str,
     block stream yields every record's virtual offset vectorially, from
     which the BAI bins / linear index are built by run-length grouping."""
     # Load sidecars with tight dtypes and free aggressively: at 840 M
-    # records every full-length int64 column is 6.7 GB, and the first
-    # version of this merge held ~14 of them simultaneously — OOM-killed
-    # at 130 GB on a 125 GB box (round 5). int32 columns + uint8 run
-    # ids + on-demand virtual offsets keep the peak ~35 GB at 840 M.
+    # records every full-length int64 column is 6.7 GB, and a merge that
+    # holds many of them at once runs out of memory. int32 columns +
+    # uint8 run ids + on-demand virtual offsets keep the peak to a few
+    # such columns.
     sides = []
     for p in run_prefixes:
         z = np.load(p + ".npz")

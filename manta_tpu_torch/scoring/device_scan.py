@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from ..align.cuda_splitscore import KERNEL_WORK
 from ..align.device_splitscore import split_score_factored
 from ..align.device_splitscore_mxu import junction_split_score
 
@@ -62,6 +63,7 @@ def _register_scan_report():
 
     def report():
         s = SCAN_STATS
+        work = KERNEL_WORK["split_score"]
         calls = s["exact"] + s["mxu"] + s["fallback"]
         if calls and not reported:
             reported.append(True)
@@ -69,9 +71,39 @@ def _register_scan_report():
                   f"{calls} calls (exact {s['exact']}, mxu {s['mxu']}, "
                   f"fallback {s['fallback']}), {s['rows']} rows, "
                   f"{s['wall']:.2f}s total, "
-                  f"{KERNEL_LAUNCHES['split_score']} kernel launches",
+                  f"{KERNEL_LAUNCHES['split_score']} kernel launches; "
+                  f"work: {work['useful']} useful terms, "
+                  f"{work['padded']} padded terms, {work['bytes']} bytes",
                   file=sys.stderr, flush=True)
     at_process_exit(report)
+
+
+def useful_terms(read_len, bp_beg, bp_end, target_len) -> int:
+    """The split scan's useful terms over the (read, target) pairs the
+    arguments broadcast to: a pair's valid scan positions, scan_start =
+    max(0, bp_beg - read_len + 2) to scan_end = max(0, min(bp_end,
+    target_len - read_len)), times its read length."""
+    rl = np.asarray(read_len, np.int64)
+    start = np.maximum(0, np.asarray(bp_beg, np.int64) - rl + 2)
+    stop = np.maximum(0, np.minimum(np.asarray(bp_end, np.int64),
+                                    np.asarray(target_len, np.int64) - rl))
+    return int((np.clip(stop - start + 1, 0, None) * rl).sum())
+
+
+def count_work(read_len, bp_ranges, target_len, Lp: int, Tp: int) -> None:
+    """Add one exact scan's work to ``KERNEL_WORK["split_score"]``: its
+    useful terms, the terms of its tiers (n x t x Tp x Lp), and its
+    bytes (reads and quals (n, Lp), targets (t, Tp), four int32 vectors,
+    both 71-entry float32 LUTs in; a float32 and an int32 a pair out)."""
+    n, t = len(read_len), len(target_len)
+    beg = np.array([b for b, _e in bp_ranges], np.int64)
+    end = np.array([e for _b, e in bp_ranges], np.int64)
+    work = KERNEL_WORK["split_score"]
+    work["useful"] += useful_terms(np.asarray(read_len)[:, None], beg, end,
+                                   target_len)
+    work["padded"] += n * t * Tp * Lp
+    work["bytes"] += (2 * n * Lp + t * Tp + 4 * (n + 3 * t) + 2 * 71 * 4
+                      + 8 * n * t)
 
 
 def _bucket(n: int) -> int:
@@ -231,7 +263,8 @@ class DeviceScanContext:
         read_idx = np.asarray(read_idx, np.int64)
         Tp = _bucket(max(len(tg) for tg in targets) + 1)
         staged = stage_reads(batch, read_idx) if self._mxu else None
-        if self._mxu and self._mxu_eligible(staged[0], targets):
+        exact = not (self._mxu and self._mxu_eligible(staged[0], targets))
+        if not exact:
             SCAN_STATS["mxu"] += 1
             out = self._scan_mxu(flank_score_size, *staged, qconv, targets,
                                  bp_ranges, Tp)
@@ -243,6 +276,10 @@ class DeviceScanContext:
                                    targets, bp_ranges, Tp)
         SCAN_STATS["rows"] += len(read_idx) * len(targets)
         SCAN_STATS["wall"] += time.perf_counter() - t0
+        if exact:
+            count_work(batch.seq_off[read_idx + 1] - batch.seq_off[read_idx],
+                       bp_ranges, [len(tg) for tg in targets],
+                       read_tier(batch, read_idx), Tp)
         return out
 
     @staticmethod

@@ -16,31 +16,42 @@ import re
 import sys
 import threading
 
+# the work each line ends with (``KERNEL_WORK``); a line written before
+# the work counters has none, and its work counts as 0
 DISPATCH_LINE = re.compile(
     r"device-dispatch pid=\d+: (\d+) calls, (\d+) jobs, (\d+) padded rows, "
     r"([0-9.]+)s total, first [0-9.]+s \(incl\. kernel build\), (\d+) "
-    r"kernel launches")
+    r"kernel launches(?:; calls by bucket .*?; work: (\d+) useful cells, "
+    r"(\d+) padded cells, (\d+) bytes)?")
 SCAN_LINE = re.compile(
     r"split-scan pid=\d+: (\d+) calls .*?, ([0-9.]+)s total, (\d+) kernel "
-    r"launches")
+    r"launches(?:; work: (\d+) useful terms, (\d+) padded terms, (\d+) "
+    r"bytes)?")
+WORK_KEYS = {"k1": ("k1_useful_cells", "k1_padded_cells", "k1_bytes"),
+             "k3": ("k3_useful_terms", "k3_padded_terms", "k3_bytes")}
 
 
 def parse_lines(text: str) -> dict:
     """The sums over the exit lines in ``text``."""
     out = {"device_processes": 0, "dispatches": 0, "contig_jobs": 0,
            "padded_rows": 0, "dispatch_wall_s": 0.0, "k1_launches": 0,
-           "split_scans": 0, "split_scan_wall_s": 0.0, "k3_launches": 0}
-    for calls, jobs, rows, wall, k1 in DISPATCH_LINE.findall(text):
+           "split_scans": 0, "split_scan_wall_s": 0.0, "k3_launches": 0,
+           **{k: 0 for keys in WORK_KEYS.values() for k in keys}}
+    for calls, jobs, rows, wall, k1, *work in DISPATCH_LINE.findall(text):
         out["device_processes"] += 1
         out["dispatches"] += int(calls)
         out["contig_jobs"] += int(jobs)
         out["padded_rows"] += int(rows)
         out["dispatch_wall_s"] += float(wall)
         out["k1_launches"] += int(k1)
-    for calls, wall, k3 in SCAN_LINE.findall(text):
+        for key, n in zip(WORK_KEYS["k1"], work):
+            out[key] += int(n or 0)
+    for calls, wall, k3, *work in SCAN_LINE.findall(text):
         out["split_scans"] += int(calls)
         out["split_scan_wall_s"] += float(wall)
         out["k3_launches"] += int(k3)
+        for key, n in zip(WORK_KEYS["k3"], work):
+            out[key] += int(n or 0)
     return out
 
 
@@ -50,20 +61,22 @@ def _own_counts() -> dict:
     dj = sys.modules.get("manta_tpu_torch.align.device_jumpscore")
     ds = sys.modules.get("manta_tpu_torch.scoring.device_scan")
     cs = sys.modules.get("manta_tpu_torch.align.cuda_splitscore")
-    out = {"dispatches": 0, "contig_jobs": 0, "padded_rows": 0,
-           "dispatch_wall_s": 0.0, "k1_launches": 0, "split_scans": 0,
-           "split_scan_wall_s": 0.0, "k3_launches": 0}
+    out = {k: v for k, v in parse_lines("").items()
+           if k != "device_processes"}
     if dj is not None:
         s = dj.DISPATCH_STATS
         out.update(dispatches=s["calls"], contig_jobs=s["jobs"],
                    padded_rows=s["rows"], dispatch_wall_s=s["wall"],
                    k1_launches=dj.KERNEL_LAUNCHES["jump_score"])
+        out.update(zip(WORK_KEYS["k1"],
+                       dj.KERNEL_WORK["jump_score"].values()))
     if ds is not None:
         s = ds.SCAN_STATS
         out.update(split_scans=s["exact"] + s["mxu"] + s["fallback"],
                    split_scan_wall_s=s["wall"])
     if cs is not None:
         out["k3_launches"] = cs.KERNEL_LAUNCHES["split_score"]
+        out.update(zip(WORK_KEYS["k3"], cs.KERNEL_WORK["split_score"].values()))
     return out
 
 

@@ -34,10 +34,34 @@ Counterpart of benchmarks/device_timing.py, one bench per entry of its
   split_cuda_factored  the same kernel on 256 reads x 2 targets, each
                      stored once (the router's layout)
   split_mxu          the matmul split scan            G=8 R=64 T=500 L=150
+  split_mxu_k3       the library yardstick of the split kernel: the
+                     matmul form (two ``torch.bmm``) on split_cuda_factored's
+                     inputs, beside the kernel on them, and its largest
+                     difference from the kernel
   scan_router        a whole ``DeviceScanContext.scan_multi`` call (staging,
                      copies, kernel, results back on the host) on 47 reads
                      x 2 junction targets, a typical workflow call, on the
                      host clock, beside the native host scan of the same
+  workflow           the kernels where a workflow launches them; not part
+                     of ``all``:
+
+      --kernel workflow --workload wgs|high-span|rna --mode jump|exact
+          [--prefix P] [--run-dir D]
+
+                     runs ``run_workflow`` at -j 1 in this process on
+                     P.bam and P.fa (germline; tumor-only exome for
+                     high-span; RNA fusion mode, by default on the demo
+                     tumor BAM) inside a torch.profiler (CUPTI) window,
+                     and prints a line a kernel: its launches in the
+                     trace and by its wrapper (they must be equal, or it
+                     exits non-zero), device ms, useful and padded work,
+                     bytes, bound and share of it, and its copies each
+                     way; then a line with phase 2's wall, the device's
+                     busy time and its share of that wall. Only this
+                     process is traced: at -j N the forked workers would
+                     escape the profiler, so it runs -j 1. With --device
+                     cpu the plain forms score and the device fields are
+                     null.
 
 Each bench prints one JSON line (and appends it to ``--json``): the
 reference's record (``kernel``, ``shape``, ``sec_per_iter`` and a rate),
@@ -65,10 +89,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import re
 import sys
 import time
 
 import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 # dense bf16 tensor-core peak of one H100 SXM (NVIDIA's data sheet), at
 # the full 700 W power limit
@@ -605,6 +634,69 @@ def bench_split_cuda_factored(ctx):
             **_split_rates(n * t, terms * n * t / B, times["sec_per_iter"]))
 
 
+def _acgtn_pairs(reads, targets):
+    """(n, t) bool: the (read, target) pairs whose bytes are all A, C,
+    G, T, N or pad, the pairs the matmul form can encode."""
+    import torch
+    from ..scoring.device_scan import _ACGTN_PAD
+    ok = torch.tensor(sorted(_ACGTN_PAD), dtype=reads.dtype,
+                      device=reads.device)
+    return (torch.isin(reads, ok).all(dim=1)[:, None]
+            & torch.isin(targets, ok).all(dim=1)[None, :])
+
+
+def mxu_on_k3_inputs(args):
+    """K3's factored call ``args`` (``split_score_factored``'s arguments)
+    through the matmul form (``device_splitscore_mxu``: two ``torch.bmm``
+    a call) on the same tensors, every position of the targets' width
+    scanned. Returns (a function that makes the call, a function from
+    K3's (best, pos) to the largest absolute difference of the best
+    scores over the pairs both forms score (finite in both, bytes the
+    matmul form encodes) and the positions that differ there)."""
+    import torch
+    from ..align.device_splitscore_mxu import from_factored, junction_split_score
+    reads, quals, read_len, targets, beg, end, tl, flank, lm, lx, _n = args
+    mxu_args = (*from_factored(reads, quals, read_len, targets, beg, end, tl),
+                flank, lm, lx, targets.shape[1])
+    call = lambda: junction_split_score(*mxu_args)
+
+    def diff(best, pos):
+        mb, mp = (a.t() for a in call())
+        both = (_acgtn_pairs(reads, targets) & torch.isfinite(best)
+                & torch.isfinite(mb))
+        err = float((mb - best).abs()[both].max()) if both.any() else 0.0
+        return err, int((mp != pos)[both].sum()), int(both.sum())
+    return call, diff
+
+
+def bench_split_mxu_k3(ctx):
+    """The library yardstick of the split kernel: the matmul form
+    (``device_splitscore_mxu.junction_split_score``, two ``torch.bmm``)
+    on the inputs of ``split_cuda_factored`` (half of ``--split-shape``'s
+    rows as reads, each against the same two targets), beside K3 on
+    them; profiler device time of each, and the matmul form's largest
+    difference from K3. On the cpu both plain forms on the host clock."""
+    from ..align.device_splitscore import split_score_factored
+    (reads, quals, targets, beg, end, rl, tl, flank, lm, lx, n_scan), \
+        _shape, terms = _split_inputs(ctx)
+    B, T, L = ctx.args.split_shape
+    n, t = max(1, B // 2), min(2, B)
+    args = (reads[:n], quals[:n], rl[:n], targets[:t], beg[:t], end[:t],
+            tl[:t], flank, lm, lx, n_scan)
+    k3 = lambda: split_score_factored(*args)
+    mxu, diff = mxu_on_k3_inputs(args)
+    err, pos_differ, pairs = diff(*k3())
+    cuda = ctx.device.type == "cuda"
+    k3_times = ctx.timer(k3, "split_score_kernel" if cuda else None)
+    times = ctx.timer(mxu)
+    _record(ctx, "split_scan_mxu_on_k3_inputs",
+            f"n={n},t={t},T={T},L={L},S={T}", times,
+            k3_sec_per_iter=k3_times["sec_per_iter"],
+            max_abs_diff_from_k3=err, positions_differ=pos_differ,
+            pairs_compared=pairs,
+            **_split_rates(n * t, terms * n * t / B, times["sec_per_iter"]))
+
+
 def bench_scan_router(ctx):
     """The exact route of the split-scan router as the scorer calls it:
     ``DeviceScanContext.scan_multi`` on one breakend's reads and junction
@@ -688,6 +780,267 @@ def bench_split_mxu(ctx):
             **_split_rates(G * R, terms, sec))
 
 
+# ------------------------------------------------------- workflow mode
+
+# the card's published peaks (NVIDIA's data sheet, H100 SXM, 700 W):
+# device memory rate and float32 outside the tensor cores; and its rate
+# of int32 adds and maxima, 64 lanes a clock on each of 132 SMs at the
+# 1.98 GHz boost clock (chip_smoke.py holds the same three)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# kernel -> (operations a useful unit, the unit): chip_smoke.py's counts,
+# int32 operations a jump-DP cell (exact and bounded chain) and float32
+# ones a split-scan term
+KERNEL_OPS = {"jump_score": (20, "cells"), "jump_score_bounded": (29, "cells"),
+              "split_score": (6, "terms")}
+WORKLOADS = ("wgs", "high-span", "rna")
+
+
+def kernel_of(event_name: str) -> str | None:
+    """The port's kernel a profiler event names, or None. Both jump
+    kernels are instances of jump_systolic_kernel<L, kBounded, kW>, told
+    apart by kBounded: "false"/"true" demangled, Lb0/Lb1 mangled."""
+    if "split_score_kernel" in event_name:
+        return "split_score"
+    if "jump_systolic_kernel" not in event_name:
+        return None
+    m = re.search(r"jump_systolic_kernel<\s*\d+\s*,\s*(true|false)"
+                  r"|jump_systolic_kernelILi\d+ELb([01])", event_name)
+    bounded = m is not None and (m.group(1) == "true" or m.group(2) == "1")
+    return "jump_score_bounded" if bounded else "jump_score"
+
+
+def _counters() -> dict:
+    """The host-side counts of this process: each wrapper's launches,
+    each kernel's work, and the calls and walls of the seams that reach
+    it (the contig dispatcher; the split router's exact scans)."""
+    import copy
+    from ..align import cuda_jumpscore as cj
+    from ..align import cuda_splitscore as cs
+    from ..align import device_jumpscore as dj
+    from ..scoring import device_scan as ds
+    scan = ds.SCAN_STATS
+    return {"launches": {**cj.KERNEL_LAUNCHES, **cs.KERNEL_LAUNCHES},
+            "work": copy.deepcopy({**cj.KERNEL_WORK, **cs.KERNEL_WORK}),
+            "calls": {"jump_score": dj.DISPATCH_STATS["calls"],
+                      "jump_score_bounded": 0,
+                      "split_score": scan["exact"] + scan["fallback"]},
+            "wall": {"jump_score": dj.DISPATCH_STATS["wall"],
+                     "jump_score_bounded": 0.0, "split_score": scan["wall"]}}
+
+
+def profile_workflow(run, device) -> dict:
+    """Call ``run()``, a workflow at -j 1 in this process (forked
+    workers would escape the trace), and return what the kernels did in
+    it: the host-side counts as deltas over the run and, on a CUDA
+    device, the device events of a torch.profiler (CUPTI) trace around
+    the whole call as (name, start us, duration us), sorted by start;
+    None on the cpu. Start CUDA and load the kernels before: their
+    start-up would otherwise fall into the run's phase 2."""
+    import torch
+    before = _counters()
+    events = None
+    if torch.device(device).type == "cuda":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = sorted(((e.name, e.time_range.start,
+                          e.time_range.end - e.time_range.start)
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e[1])
+    else:
+        run()
+    after = _counters()
+
+    def minus(a, b):
+        return ({k: minus(a[k], b[k]) for k in a} if isinstance(a, dict)
+                else a - b)
+    return {"counts": minus(after, before), "events": events}
+
+
+def phase2_wall(run_dir: str) -> float:
+    """Seconds of phase 2 (candidates, assembly, scoring) from the run's
+    workspace/workflow_log.txt: from its first line to the line that
+    counts the processed graph edges."""
+    import datetime
+    at = {}
+    with open(os.path.join(run_dir, "workspace", "workflow_log.txt")) as f:
+        for ln in f:
+            for key in ("generating and scoring", "processed "):
+                if ln[26:].startswith(key) and key not in at:
+                    at[key] = datetime.datetime.fromisoformat(ln[1:24])
+    return (at["processed "] - at["generating and scoring"]).total_seconds()
+
+
+def _copy_way(name: str) -> str | None:
+    """"h2d" or "d2h" for a profiler event that copies that way."""
+    low = name.lower()
+    if "memcpy" not in low:
+        return None
+    return "h2d" if "htod" in low else "d2h" if "dtoh" in low else None
+
+
+def _busy_us(events) -> float:
+    """Time the device was busy: the union of the events' intervals."""
+    busy, end = 0.0, float("-inf")
+    for _name, start, dur in events:
+        stop = start + dur
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
+def workflow_records(reading: dict, phase2_s: float, device_name: str,
+                     workload: str, mode: str) -> list[dict]:
+    """One record a kernel and one for phase 2 from ``profile_workflow``'s
+    ``reading``. A kernel's record: its launches by the wrapper and in
+    the trace, the calls of the seam that reaches it and their wall,
+    device ms in all and a launch, the work counters, the bound (the
+    larger of the bytes over the memory rate and the useful work's
+    operations over the float32 rate; for the jump kernels also over
+    the int32 rate) and the share of it reached, and the copies on its
+    side of the trace: host-to-device ones before each launch, the
+    device-to-host one after. On the cpu the device fields are None.
+    The phase-2 record: the wall, the device's busy time (the union of
+    every device event: kernels, copies, memsets; phases 0 and 1 and
+    the final sort put nothing on the device) and its share of the
+    wall, and the events by name."""
+    counts, events = reading["counts"], reading["events"]
+    on_card = events is not None
+    per = {k: {"ms": 0.0, "n": 0, "h2d": [0, 0.0], "d2h": [0, 0.0]}
+           for k in KERNEL_OPS}
+    by_name: dict[str, list] = {}
+    pending, last = [], None
+    for name, start, dur in events or ():
+        entry = by_name.setdefault(name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += dur / 1e3
+        way, kernel = _copy_way(name), kernel_of(name)
+        if kernel is not None:
+            per[kernel]["ms"] += dur / 1e3
+            per[kernel]["n"] += 1
+            for d in pending:
+                per[kernel]["h2d"][0] += 1
+                per[kernel]["h2d"][1] += d / 1e3
+            pending, last = [], kernel
+        elif way == "h2d":
+            pending.append(dur)
+        elif way == "d2h" and last is not None:
+            per[last]["d2h"][0] += 1
+            per[last]["d2h"][1] += dur / 1e3
+    out = []
+    for kernel, (ops_per_unit, unit) in KERNEL_OPS.items():
+        work = counts["work"][kernel]
+        p = per[kernel]
+        t_bytes = work["bytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops_per_unit * work["useful"] / PEAK_OPS_PER_S * 1e3
+        rec = {"kernel": kernel, "metric": "workflow_kernel",
+               "workload": workload, "mode": mode, "device": device_name,
+               "calls": counts["calls"][kernel],
+               "launches_wrapper": counts["launches"][kernel],
+               "launches_profiler": p["n"] if on_card else None,
+               "path_wall_s": counts["wall"][kernel],
+               "device_ms": p["ms"] if on_card else None,
+               "device_ms_per_launch": (p["ms"] / p["n"] if on_card
+                                        and p["n"] else None),
+               "work_unit": unit, "useful_work": work["useful"],
+               "padded_work": work["padded"], "bytes": work["bytes"],
+               "ops": ops_per_unit * work["useful"],
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if kernel != "split_score":
+            rec["bound_ms_int32"] = max(
+                t_bytes, ops_per_unit * work["useful"]
+                / PEAK_INT32_OPS_PER_S * 1e3)
+        for key in [k for k in rec if k.startswith("bound_ms")]:
+            share = key.replace("bound_ms", "share_of_bound")
+            rec[share] = (rec[key] / p["ms"] if on_card and p["ms"]
+                          else None)
+        for way in ("h2d", "d2h"):
+            rec[way] = {"count": p[way][0] if on_card else None,
+                        "device_ms": p[way][1] if on_card else None}
+        out.append(rec)
+    busy_ms = _busy_us(events) / 1e3 if on_card else None
+    out.append({"metric": "workflow_phase2", "workload": workload,
+                "mode": mode, "device": device_name,
+                "phase2_wall_s": phase2_s, "device_busy_ms": busy_ms,
+                "busy_share": (busy_ms / (phase2_s * 1e3) if on_card
+                               and phase2_s > 0 else None),
+                "device_events": ({name: {"count": n, "device_ms": ms}
+                                   for name, (n, ms) in sorted(
+                                       by_name.items())}
+                                  if on_card else None)})
+    return out
+
+
+def workflow_inputs(workload: str, prefix: str | None):
+    """(normal BAMs, tumor BAMs, reference, run_workflow keywords) of a
+    workload: a germline WGS-shaped one (tools.wgs_workload), a
+    tumor-only exome run of the high-span BAM (tools.stress_workload) or
+    RNA fusion mode on a tumor BAM; ``prefix``.bam and ``prefix``.fa,
+    for RNA by default the demo tumor BAM and the demo reference."""
+    if prefix is None:
+        if workload != "rna":
+            raise ValueError(f"--workload {workload} needs --prefix")
+        from .stress_workload import TUMOR, ensure_demo_fasta
+        return [], [TUMOR], ensure_demo_fasta(), {"is_rna": True}
+    bam, fa = prefix + ".bam", prefix + ".fa"
+    if workload == "wgs":
+        return [bam], [], fa, {}
+    return [], [bam], fa, ({"is_exome": True} if workload == "high-span"
+                           else {"is_rna": True})
+
+
+def bench_workflow(ctx):
+    """The workflow mode: ``run_workflow`` at -j 1 in this process
+    (``--workload``, ``--mode``, ``--prefix``, ``--run-dir``, emptied
+    first), in a torch.profiler window on the card, then
+    ``workflow_records``. Each kernel's launches in the trace must
+    equal its wrapper's count, and on the cpu no kernel may launch."""
+    import shutil
+
+    import torch
+    from .. import native_core
+    from ..workflow.run import run_workflow
+    args = ctx.args
+    native_core.load()
+    normal, tumor, fasta, kw = workflow_inputs(args.workload, args.prefix)
+    run_dir = args.run_dir or os.path.join(
+        REPO, "results_torch", f"workflow_{args.workload}_{args.mode}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    if ctx.device.type == "cuda":
+        from ..align import cuda_jumpscore, cuda_splitscore
+        cuda_jumpscore._lib()
+        if args.mode == "exact":
+            cuda_splitscore._lib()
+        torch.zeros(1, device=ctx.device)
+        torch.cuda.synchronize()
+    reading = profile_workflow(
+        lambda: run_workflow(normal, tumor, fasta, run_dir, n_jobs=1,
+                             use_device_scoring=args.mode,
+                             device=ctx.device, verbose=False, **kw),
+        ctx.device)
+    records = workflow_records(reading, phase2_wall(run_dir),
+                               ctx.device_name, args.workload, args.mode)
+    for rec in records:
+        rec["run_dir"] = run_dir
+        ctx.emit(rec)
+    if ctx.device.type == "cpu":
+        wrong = [r["kernel"] for r in records[:-1] if r["launches_wrapper"]]
+    else:
+        wrong = [r["kernel"] for r in records[:-1]
+                 if r["launches_profiler"] != r["launches_wrapper"]]
+    if wrong:
+        raise AssertionError(f"launches in the trace != the wrapper's "
+                             f"count (or a launch on the cpu): {wrong}")
+
+
 # in the order "all" runs them: the anchor, the kernels, then the plain
 # forms, whose traces of thousands of kernels come last
 BENCHES = {
@@ -698,13 +1051,15 @@ BENCHES = {
     "split_cuda": bench_split_cuda,
     "split_cuda_factored": bench_split_cuda_factored,
     "split_mxu": bench_split_mxu,
+    "split_mxu_k3": bench_split_mxu_k3,
     "split_exact": bench_split_exact,
     "jump": bench_jump,
 }
 # on request only: some 25 timed layouts; and the router, which "all"
 # runs on the card only (on the cpu its plain form takes ~0.15 s a call)
 EXTRA_BENCHES = {"jump_layouts": bench_jump_layouts,
-                 "scan_router": bench_scan_router}
+                 "scan_router": bench_scan_router,
+                 "workflow": bench_workflow}
 # the benches that launch a hand-written kernel: the card only
 CUDA_ONLY = ("jump_cuda", "jump_cuda_bounded", "jump_layouts", "split_cuda",
              "split_cuda_factored")
@@ -748,6 +1103,17 @@ def main(argv=None) -> int:
                     metavar="B,Q,R", help="jump_layouts: this bucket only")
     ap.add_argument("--layout-loops", type=int, default=3,
                     help="jump_layouts: timed loops a layout")
+    ap.add_argument("--workload", default="wgs", choices=WORKLOADS,
+                    help="workflow: germline on PREFIX.bam (wgs), "
+                         "tumor-only exome (high-span) or RNA fusion mode "
+                         "(rna; the demo tumor BAM without --prefix)")
+    ap.add_argument("--mode", default="jump", choices=("jump", "exact"),
+                    help="workflow: the device scoring mode")
+    ap.add_argument("--prefix", default=None,
+                    help="workflow: the workload's PREFIX.bam and PREFIX.fa")
+    ap.add_argument("--run-dir", default=None,
+                    help="workflow: the run directory, emptied first "
+                         "(default results_torch/workflow_<workload>_<mode>)")
     args = ap.parse_args(argv)
 
     import torch

@@ -710,3 +710,32 @@ def test_bench_edges_jump_edges_and_body_equal_off(bench_edges_runs):
     assert jump[0]["edges"] == off[0]["edges"] > 0
     assert jump[1] == off[1] and len(off[1]) > 0
     assert off[0]["k1_launches"] == off[0]["dispatches"] == 0
+
+
+# ---- the kernels where a workflow launches them (tools.device_timing
+# --kernel workflow)
+
+def test_workflow_mode_on_the_wgs_shaped_jump_run(cuda, tmp_path):
+    """The timing tool's workflow mode on a small WGS-shaped workload (1
+    x 2 Mb at 20x) in jump: K1's launches in the profiler's trace equal
+    its wrapper's count, and its device time is no more than the
+    dispatcher's wall."""
+    from manta_tpu_torch.tools import device_timing as dt
+    prefix = str(tmp_path / "w")
+    gen = subprocess.run(
+        [sys.executable, "-m", "manta_tpu_torch.tools.wgs_workload", "--out",
+         prefix, "--chroms", "1", "--mb", "2", "--depth", "20", "--seed",
+         "7"], capture_output=True, text=True, timeout=600)
+    assert gen.returncode == 0, gen.stderr[-3000:]
+    out = tmp_path / "records.jsonl"
+    assert dt.main(["--kernel", "workflow", "--workload", "wgs", "--mode",
+                    "jump", "--prefix", prefix, "--run-dir",
+                    str(tmp_path / "run"), "--json", str(out)]) == 0
+    records = [json.loads(ln) for ln in out.read_text().splitlines()]
+    k1 = next(r for r in records if r.get("kernel") == "jump_score")
+    phase2 = next(r for r in records if r.get("metric") == "workflow_phase2")
+    assert k1["launches_wrapper"] == k1["launches_profiler"] == k1["calls"]
+    assert k1["launches_wrapper"] > 0
+    assert 0 < k1["device_ms"] <= k1["path_wall_s"] * 1e3
+    assert k1["h2d"]["count"] > 0 and k1["d2h"]["count"] > 0
+    assert 0 < phase2["busy_share"] < 1

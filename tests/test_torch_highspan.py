@@ -8,7 +8,9 @@ sends many jobs through the bucketed contig scorer: more than the
 WGS-shaped workloads reach. The tumor VCF body of the port with scoring
 off (the native score batch), of the port with jump (the plain form of
 the jump kernel on the CPU) and of the JAX package with jump (its
-batched_jump_score) must be identical byte for byte."""
+batched_jump_score) must be identical byte for byte, and K1's work
+counter over the jump run must equal the cells of the jobs the
+dispatcher padded."""
 
 import gzip
 
@@ -17,6 +19,7 @@ import pytest
 from manta_tpu.align import device_jumpscore as reference_dj
 from manta_tpu.workflow.run import run_workflow as reference_run
 from manta_tpu_torch.align import device_jumpscore as dj
+from manta_tpu_torch.align.cuda_jumpscore import KERNEL_WORK
 from manta_tpu_torch.tools import stress_workload
 from manta_tpu_torch.workflow.run import run_workflow
 
@@ -42,6 +45,14 @@ def runs(tmp_path_factory, demo_fasta):
         demo_fasta=demo_fasta)
     assert reads == 2260 * TILES
     out = {}
+    # the jump run's jobs as the dispatcher pads them, and K1's work
+    # counter over the run
+    padded, pad_jobs = [], dj.pad_jobs
+
+    def keeping(jobs, rows):
+        padded.append(jobs)
+        return pad_jobs(jobs, rows)
+    work = dict(KERNEL_WORK["jump_score"])
     for name, run, stats, kw in (
             ("off", run_workflow, dj.DISPATCH_STATS,
              dict(use_device_scoring="off", device="cpu")),
@@ -50,9 +61,17 @@ def runs(tmp_path_factory, demo_fasta):
             ("jax_jump", reference_run, reference_dj.DISPATCH_STATS,
              dict(use_device_scoring="jump"))):
         stats["jobs"] = 0
-        run([], [bam], fasta, str(d / name), is_exome=True, n_jobs=1,
-            verbose=False, **kw)
+        if name == "jump":
+            dj.pad_jobs = keeping
+        try:
+            run([], [bam], fasta, str(d / name), is_exome=True, n_jobs=1,
+                verbose=False, **kw)
+        finally:
+            dj.pad_jobs = pad_jobs
         out[name] = _body(d / name), stats["jobs"]
+        if name == "jump":
+            out["jump_work"] = padded, {
+                k: v - work[k] for k, v in KERNEL_WORK["jump_score"].items()}
     return out
 
 
@@ -75,3 +94,15 @@ def test_every_tile_is_called_alike(runs):
     """The tiles are copies of one junction: each holds as many records."""
     body = runs["jump"][0]
     assert len(body) % TILES == 0
+
+
+def test_k1_work_counter_equals_the_jobs_cells(runs):
+    """K1's useful-cell counter over the jump run equals the sum over
+    the dispatched jobs of len(query) x (len(ref1) + len(ref2)),
+    counted here from the jobs themselves; every job is counted once."""
+    batches, work = runs["jump_work"]
+    jobs = [job for batch in batches for job in batch]
+    assert len(jobs) == runs["jump"][1] > 0
+    assert work["useful"] == sum(len(q) * (len(r1) + len(r2))
+                                 for q, r1, r2 in jobs)
+    assert 0 < work["useful"] < work["padded"]

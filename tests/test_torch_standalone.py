@@ -204,13 +204,13 @@ def test_device_timing_on_the_cpu_without_the_jax_package():
     records = [json.loads(ln) for ln in lines[:-1]]
     assert [r["kernel"] for r in records[:-1]] == [
         "matmul_bf16_ref", "jumpalign", "jumpalign", "split_scan_mxu",
-        "split_scan_exact", "jump_score_dp"]
+        "split_scan_mxu_on_k3_inputs", "split_scan_exact", "jump_score_dp"]
     assert [r["metric"] for r in records[1:3]] == [
         "jump_align_throughput_host", "jump_align_throughput_device"]
     assert records[2]["host_parity"] == "4/4"
     assert all(r["device"] in ("cpu", "host") and r["timed_by"] == "host "
                "clock" and r["sec_per_iter"] > 0 for r in records[:-1])
-    assert records[5]["shape"] == "B=3,q=24,refs=2x40"
+    assert records[6]["shape"] == "B=3,q=24,refs=2x40"
     assert records[-1] == {"kernel_launches": {
         "jump_score": 0, "jump_score_bounded": 0, "split_score": 0}}
 
