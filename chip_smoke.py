@@ -102,12 +102,17 @@ tumor-only, --rescore):
    device time, bound, the router's wall and the matmul form on the same
    tensors; the exact run inside the profiler window); ten-sample joint
    germline
-   (python -m manta_tpu_torch.tools.wgs_workload --samples 10) through
-   the command line at -j 8 with off, jump and exact, then the truth
+   (python -m manta_tpu_torch.tools.wgs_workload --samples 10) at -j 8
+   with off through the command line, jump and exact through the timing
+   tool's command line (python -m manta_tpu_torch.tools.device_timing
+   --kernel workflow --workload joint --jobs 8: the same run_workflow,
+   each phase-2 worker tracing itself, 6f), then the truth
    checker resumed on the three run directories at once (identical diploid
    bodies and check lines; K1 launched in jump and K3 in exact, counted
    in the workers' exit lines); tumor-only on the WGS-shaped BAM with
-   off, jump and exact, checked in tumor mode; and --rescore of the
+   off and jump through the command line and exact through the timing
+   tool (--workload tumor --jobs 8), checked in tumor mode; and
+   --rescore of the
    exact ten-sample run (the graph untouched, the candidates rewritten,
    the same body, K3 launched); walls, phase walls and peak memory of
    every run;
@@ -120,6 +125,15 @@ tumor-only, --rescore):
    each way; phase 2's wall and the device's busy share of it (a run
    whose trace in this process lost a launch is made again in a child
    through the tool, its body held against this run's);
+6f. kernels in the workers: for the calling modes' runs at -j 8 made
+   through the timing tool (ten-sample joint jump and exact, tumor-only
+   exact), each kernel's launches in the workers' traces, by their
+   wrappers and on their exit lines, all equal, its device time no more
+   than its seam's wall summed over the workers, the card's busy time
+   (the union over the workers) no more than phase 2's wall, no event
+   outside phase 2 and no two kernels of a worker overlapping; the
+   workers traced and launching, their CUDA start-ups and where their
+   time went in phase 2;
 7. the timing entry point, python -m manta_tpu_torch.tools.device_timing
    --kernel all --json, in a subprocess: its records, and its launch
    counts (all three kernels launched); jumpalign's two records, the
@@ -143,7 +157,7 @@ and the int32/float32 operations of the rows' own lengths over 67 Top/s
 jump kernels' rows also hold the bound at the card's real rate of int32
 maxima (bound_ms_int32), and its readings on each main path
 (main_paths: launches, device ms, bound, share, copies and the busy
-share of phase 2).
+share of phase 2, at -j 1 and in the -j 8 workers).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the exit code is non-zero and that line is not printed. Without a CUDA
@@ -1291,10 +1305,15 @@ def _profiled(path: str, workload: str, mode: str, run_dir: str, run,
     """``run()``, a workflow at -j 1 in this process, inside the timing
     tool's profiler window (tools.device_timing --kernel workflow); its
     records kept under ``path`` in MAIN_PATHS. The profiler of a
-    long-lived process can lose a trace (seen on the card: no event of
-    an RNA run late in the smoke); where this one lost a launch, the
-    same run is made again in a child through the tool's workflow mode,
-    whose first trace holds them, and its body must equal this run's."""
+    long-lived process loses launches: the longer after the process's
+    first trace, the more of a trace's first kernel records go missing
+    while the runtime still records their launch calls, and a fresh
+    process loses none (python -m manta_tpu_torch.tools.device_timing
+    --kernel trace_aging; seen here as no event of the RNA run late in
+    the smoke). The cause lies in the profiler (Kineto/CUPTI), not in
+    the port, so where this trace lost a launch the same run is made
+    again in a child through the tool's workflow mode, whose first
+    trace holds them, and its body must equal this run's."""
     from manta_tpu_torch.tools import device_timing as dt
     reading = dt.profile_workflow(run, device)
     records = dt.workflow_records(
@@ -1669,6 +1688,86 @@ def main_paths(card: str) -> dict:
     return out
 
 
+def worker_paths(card: str) -> dict:
+    """The kernels in the -j 8 workers, from the records the calling
+    modes' timing-tool runs left in WORKER_PATHS (ten-sample joint
+    germline in jump and exact, tumor-only exact; each phase-2 worker
+    traced itself, parallel/worker_trace): on each run every kernel's
+    launches in the workers' traces equal their wrappers' sum and their
+    exit lines', its device time is no more than its seam's wall summed
+    over the workers, the busy union of the card is no more than phase
+    2's wall, no event fell outside phase 2 and no two kernels of a
+    worker overlap; the kernel the path is there for launched (each
+    run's body equals its 'off' run's, held in the calling modes).
+    Returns kernel -> path -> the readings the kernels line carries."""
+    phase("kernels in the workers: device time, launches and bound in the "
+          f"-j {HOST_JOBS} phase-2 workers (tools.device_timing --kernel "
+          f"workflow --jobs {HOST_JOBS})")
+    out = {name: {} for name in KERNELS}
+    for path, kernel in WORKER_PATH_KERNELS.items():
+        records = WORKER_PATHS[path]
+        for rec in records:
+            rec.pop("run_dir", None)
+            print(json.dumps(rec), flush=True)
+        phase2 = records[-1]
+        on_card = phase2["device_busy_ms"] is not None
+        for rec in records[:-1]:
+            name = rec["kernel"]
+            counted = {rec["launches_wrapper"], rec["launches_exit_lines"],
+                       rec["calls"]}
+            if on_card:
+                counted.add(rec["launches_profiler"])
+            if len(counted) != 1:
+                raise AssertionError(
+                    f"{path}: {name} {rec['launches_profiler']} launches in "
+                    f"the traces, {rec['launches_wrapper']} by the wrappers, "
+                    f"{rec['launches_exit_lines']} on the exit lines, "
+                    f"{rec['calls']} calls")
+            if on_card and rec["device_ms"] > rec["path_wall_s"] * 1e3:
+                raise AssertionError(
+                    f"{path}: {name} {rec['device_ms']} device ms over its "
+                    f"seam's summed wall {rec['path_wall_s']} s")
+            out[name][path] = {key: rec[key] for key in (
+                "launches_wrapper", "device_ms", "device_ms_per_launch",
+                "bound_ms", "share_of_bound", "h2d", "d2h")}
+            out[name][path].update({key: phase2[key] for key in (
+                "busy_share", "jobs", "workers", "workers_launched",
+                "cuda_startup_s")})
+        if on_card and (
+                phase2["device_busy_ms"] > phase2["phase2_wall_s"] * 1e3
+                or phase2["events_outside_phase2"]
+                or phase2["overlapping_kernels"]):
+            raise AssertionError(f"{path}: {phase2}")
+        rec = next(r for r in records[:-1] if r["kernel"] == kernel)
+        if not rec["calls"]:
+            raise AssertionError(f"{path}: {kernel} never called")
+        ms, up = rec["device_ms"], phase2["cuda_startup_s"]
+        print(f"{card}; {path}: {kernel} {rec['launches_wrapper']} launches "
+              f"(traces {rec['launches_profiler']}, exit lines "
+              f"{rec['launches_exit_lines']}) in {phase2['workers_launched']}"
+              f" of {phase2['workers']} workers, device "
+              + ("not measured" if ms is None else
+                 f"{ms:.4f} ms ({rec['device_ms_per_launch']:.5f} a launch)")
+              + f", bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}"
+              + ("" if ms is None else
+                 f" ({rec['share_of_bound']:.2%} reached)")
+              + f"; its seam's summed wall {rec['path_wall_s']:.4f} s; "
+              f"phase 2 {phase2['phase2_wall_s']:.2f} s, card busy "
+              + ("not measured" if ms is None else
+                 f"{phase2['device_busy_ms']:.3f} ms "
+                 f"({phase2['busy_share']:.4%}), clock {phase2['clocks']}")
+              + ("" if up is None else
+                 f"; the workers' CUDA start-up {up['min']:.3f} / "
+                 f"{up['median']:.3f} / {up['max']:.3f} s (min / median / "
+                 "max)")
+              + "".join(f"; {mark} {v['min']:.2f} / {v['median']:.2f} / "
+                        f"{v['max']:.2f} s" for mark, v in
+                        phase2["worker_marks_s"].items()
+                        if mark in ("first_device_call", "trace_start_s"))
+              + "; body == off's", flush=True)
+    return out
+
+
 # a small process that starts the code of its first argument in a child
 # of its own: a process's ru_maxrss carries the high-water mark of the
 # process that started it (fork, then exec), and this one is small
@@ -1811,11 +1910,17 @@ _CLI_MEASURED = """
 import json
 import sys
 
+from manta_tpu_torch.tools import device_timing
 from manta_tpu_torch.tools.bench_wgs_at_scale import RssSampler
 from manta_tpu_torch.workflow import run
 
 with RssSampler(interval=1.0) as rss:
-    run.main(sys.argv[1:])
+    if sys.argv[1] == "--kernel":
+        rc = device_timing.main(sys.argv[1:])
+    else:
+        rc = run.main(sys.argv[1:])
+if rc:
+    sys.exit(rc)
 anon = "rss_anon" in rss.sources
 print(json.dumps({
     "peak_tree_rss_gb": round(rss.peak_total / 1e9, 2),
@@ -1828,7 +1933,11 @@ print(json.dumps({
 def _cli(what: str, args: list) -> dict:
     """The workflow's command line with ``args`` in a child: its wall,
     phase walls (of a run that did phases 0-2), peak memory and device
-    work (every process's exit line, tools/device_counts.py)."""
+    work (every process's exit line, tools/device_counts.py). ``args``
+    starting with ``--kernel`` run the timing tool's command line
+    instead (``--kernel workflow ... --jobs N``: the same run_workflow at
+    -j N, its phase-2 workers tracing themselves); its records are kept
+    under "records"."""
     from manta_tpu_torch.tools.device_counts import parse_lines
     t0 = time.perf_counter()
     run = run_child(["-c", _CLI_MEASURED, *args])
@@ -1839,8 +1948,29 @@ def _cli(what: str, args: list) -> dict:
     run_dir = args[args.index("--run-dir") + 1]
     return {"wall": wall, "stderr": run.stderr, "run_dir": run_dir,
             "memory": _last_json(run.stdout), "work": parse_lines(run.stderr),
+            "records": _tool_records(run.stdout)[:-1],
             "phases": ("phases 0 and 1 reused" if "--rescore" in args
                        else _phase_walls(run_dir))}
+
+
+# the runs of the calling modes made through the timing tool at -j 8
+# (the kernels in the workers): path -> its records (a line a kernel,
+# then phase 2's)
+WORKER_PATHS = {}
+# path -> the kernel the path is there for
+WORKER_PATH_KERNELS = {"joint10_jump": "jump_score",
+                       "joint10_exact": "split_score",
+                       "tumor_only_exact": "split_score"}
+
+
+def _mode_args(path: str, mode: str, cli: list, tool: list) -> list:
+    """The command line of a calling mode's run: the timing tool's
+    workflow mode at -j 8 where the run is one of WORKER_PATHS, else
+    the workflow's."""
+    if path in WORKER_PATH_KERNELS:
+        return ["--kernel", "workflow", *tool, "--mode", mode, "--jobs",
+                HOST_JOBS]
+    return [*cli, "--device-scoring", mode, "-j", HOST_JOBS]
 
 
 def _check_work(what: str, mode: str, work: dict) -> None:
@@ -2111,8 +2241,13 @@ def joint_germline(card: str, gen: subprocess.Popen) -> dict:
     runs, bodies = {}, {}
     for mode in CALLING_MODES:
         run_dir = os.path.join(JOINT_WORK, f"run_{mode}")
+        path = f"joint10_{mode}"
         res = runs[mode] = _cli(f"joint {mode}", [
-            *base, "--run-dir", run_dir, "--device-scoring", mode])
+            *_mode_args(path, mode, [*bams, "--reference", prefix + ".fa"],
+                        ["--workload", "joint", "--prefix", prefix]),
+            "--run-dir", run_dir])
+        if path in WORKER_PATH_KERNELS:
+            WORKER_PATHS[path] = res["records"]
         _check_work("joint", mode, res["work"])
         vcf = os.path.join(run_dir, "results", "variants", "diploidSV.vcf.gz")
         bodies[mode] = _records(vcf)
@@ -2162,9 +2297,14 @@ def tumor_only(card: str, wgs: dict) -> dict:
     runs, bodies = {}, {}
     for mode in CALLING_MODES:
         run_dir = os.path.join(work, f"run_{mode}")
+        path = f"tumor_only_{mode}"
         res = runs[mode] = _cli(f"tumor-only {mode}", [
-            "--tumor-bam", prefix + ".bam", "--reference", prefix + ".fa",
-            "-j", HOST_JOBS, "--run-dir", run_dir, "--device-scoring", mode])
+            *_mode_args(path, mode, ["--tumor-bam", prefix + ".bam",
+                                     "--reference", prefix + ".fa"],
+                        ["--workload", "tumor", "--prefix", prefix]),
+            "--run-dir", run_dir])
+        if path in WORKER_PATH_KERNELS:
+            WORKER_PATHS[path] = res["records"]
         _check_work("tumor-only", mode, res["work"])
         bodies[mode] = _records(os.path.join(run_dir, "results", "variants",
                                              "tumorSV.vcf.gz"))
@@ -2522,6 +2662,8 @@ def smoke() -> None:
     twin_launches = bench_scripts(card, high)
     modes = calling_modes(card, wgs, joint_gen)
     on_paths = main_paths(card)
+    for name, paths in worker_paths(card).items():
+        on_paths[name].update(paths)
     launches["jump_score_bounded"] = device_timing()["jump_score_bounded"]
     dry_launches = dry_run()
     foreign = sorted(m for m in sys.modules

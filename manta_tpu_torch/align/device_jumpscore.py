@@ -45,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import worker_trace
 from .cuda_jumpscore import (
     KERNEL_LAUNCHES, KERNEL_WORK, jump_score_cuda, raise_on_kernel_error,
     rerun_flagged,
@@ -619,6 +620,7 @@ def make_bucketed_scorer(scores, jump_score: int, device):
         B = len(jobs)
         if B == 0:
             return np.zeros(0, np.int32)
+        worker_trace.device_call(device)
         _t0 = _time.perf_counter()
         Bp = _bucket(B, tiers=(8, 16, 32, 64, 128, 256))
         t = from_reference_inputs(*pad_jobs(jobs, Bp), device)

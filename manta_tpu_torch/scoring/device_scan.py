@@ -35,6 +35,7 @@ import torch
 from ..align.cuda_splitscore import KERNEL_WORK
 from ..align.device_splitscore import split_score_factored
 from ..align.device_splitscore_mxu import junction_split_score
+from ..parallel import worker_trace
 
 _TIERS = (256, 512, 1024, 2048, 4096, 8192)
 
@@ -259,6 +260,7 @@ class DeviceScanContext:
     def scan_multi(self, flank_score_size, batch, read_idx, qconv,
                    targets, bp_ranges):
         """Same contract as evidence.split_read_scan_multi."""
+        worker_trace.device_call(self.device)
         t0 = time.perf_counter()
         read_idx = np.asarray(read_idx, np.int64)
         Tp = _bucket(max(len(tg) for tg in targets) + 1)

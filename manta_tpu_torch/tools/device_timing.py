@@ -38,6 +38,13 @@ Counterpart of benchmarks/device_timing.py, one bench per entry of its
                      matmul form (two ``torch.bmm``) on split_cuda_factored's
                      inputs, beside the kernel on them, and its largest
                      difference from the kernel
+  trace_aging        the profiler's lost launches: traces of 12 router
+                     calls (one split-kernel launch each), cold and warm,
+                     every 40 s for ``--aging-s`` seconds (default 240)
+                     after this process's first trace, beside a child
+                     whose first trace comes that late; the launches
+                     against the kernel records and the runtime's launch
+                     calls each trace holds. Not part of ``all``
   scan_router        a whole ``DeviceScanContext.scan_multi`` call (staging,
                      copies, kernel, results back on the host) on 47 reads
                      x 2 junction targets, a typical workflow call, on the
@@ -45,23 +52,33 @@ Counterpart of benchmarks/device_timing.py, one bench per entry of its
   workflow           the kernels where a workflow launches them; not part
                      of ``all``:
 
-      --kernel workflow --workload wgs|high-span|rna --mode jump|exact
-          [--prefix P] [--run-dir D]
+      --kernel workflow --workload wgs|joint|tumor|high-span|rna
+          --mode jump|exact [--prefix P] [--jobs N] [--run-dir D]
 
-                     runs ``run_workflow`` at -j 1 in this process on
-                     P.bam and P.fa (germline; tumor-only exome for
-                     high-span; RNA fusion mode, by default on the demo
-                     tumor BAM) inside a torch.profiler (CUPTI) window,
-                     and prints a line a kernel: its launches in the
-                     trace and by its wrapper (they must be equal, or it
-                     exits non-zero), device ms, useful and padded work,
-                     bytes, bound and share of it, and its copies each
-                     way; then a line with phase 2's wall, the device's
-                     busy time and its share of that wall. Only this
-                     process is traced: at -j N the forked workers would
-                     escape the profiler, so it runs -j 1. With --device
-                     cpu the plain forms score and the device fields are
-                     null.
+                     runs ``run_workflow`` in this process on P.bam and
+                     P.fa (germline; joint germline on every P.s<k>.bam
+                     of a ``tools.wgs_workload --samples K`` prefix;
+                     tumor-only; tumor-only exome for high-span; RNA
+                     fusion mode, by default on the demo tumor BAM), and
+                     prints a line a kernel: its launches in the trace
+                     and by its wrapper (they must be equal, or it exits
+                     non-zero), device ms, useful and padded work, bytes,
+                     bound and share of it, and its copies each way; then
+                     a line with phase 2's wall, the device's busy time
+                     (the union of every device event) and its share of
+                     that wall. At -j 1 (the default) the run is inside a
+                     torch.profiler (CUPTI) window of this process. At
+                     --jobs N above 1 this process makes no CUDA context
+                     (it forks the workers); each phase-2 worker traces
+                     its own device work from its first device call
+                     (parallel/worker_trace) and writes it to
+                     D/workspace/device_trace.<pid>.json at exit, and the
+                     lines hold their merge, the workers' launches on
+                     their exit lines too (all three counts must be
+                     equal), the workers traced and launching, their
+                     CUDA start-ups (min, median, max) and the clock.
+                     With --device cpu the plain forms score and the
+                     device fields are null.
 
 Each bench prints one JSON line (and appends it to ``--json``): the
 reference's record (``kernel``, ``shape``, ``sec_per_iter`` and a rate),
@@ -697,16 +714,15 @@ def bench_split_mxu_k3(ctx):
             **_split_rates(n * t, terms * n * t / B, times["sec_per_iter"]))
 
 
-def bench_scan_router(ctx):
-    """The exact route of the split-scan router as the scorer calls it:
-    ``DeviceScanContext.scan_multi`` on one breakend's reads and junction
-    targets, from numpy in to numpy out. Host clock, median of the timed
-    calls; the native host scan of the same call beside it."""
+def _router_inputs(ctx):
+    """A typical call of the split router: ``--router-shape`` reads of
+    101-150 bases against as many junction targets of 400 + 20k bases,
+    from ``ctx.rng``: (batch, read indices, qscore converter, targets,
+    breakpoint ranges)."""
     from types import SimpleNamespace
 
     from .. import native_core
-    from ..scoring.device_scan import DeviceScanContext
-    from ..scoring.evidence import QscoreSnp, split_read_scan_multi
+    from ..scoring.evidence import QscoreSnp
     native_core.load()
     n, t = ctx.args.router_shape
     rng = ctx.rng
@@ -720,8 +736,19 @@ def bench_scan_router(ctx):
         seq_off=off, qual_off=off.copy(), n=n)
     targets = [bases[rng.integers(0, 4, 400 + 20 * k)] for k in range(t)]
     ranges = [(len(tg) // 2 - 3, len(tg) // 2 + 2) for tg in targets]
-    idx = np.arange(n, dtype=np.int64)
-    qconv = QscoreSnp(1e-3)
+    return batch, np.arange(n, dtype=np.int64), QscoreSnp(1e-3), targets, \
+        ranges
+
+
+def bench_scan_router(ctx):
+    """The exact route of the split-scan router as the scorer calls it:
+    ``DeviceScanContext.scan_multi`` on one breakend's reads and junction
+    targets, from numpy in to numpy out. Host clock, median of the timed
+    calls; the native host scan of the same call beside it."""
+    from ..scoring.device_scan import DeviceScanContext
+    from ..scoring.evidence import split_read_scan_multi
+    n, t = ctx.args.router_shape
+    batch, idx, qconv, targets, ranges = _router_inputs(ctx)
     scan = DeviceScanContext(device=ctx.device)
     want = split_read_scan_multi(FLANK, batch, idx, qconv, targets, ranges)
     got = scan.scan_multi(FLANK, batch, idx, qconv, targets, ranges)
@@ -745,6 +772,106 @@ def bench_scan_router(ctx):
             {"sec_per_iter": sec, "timed_by": "host clock",
              "iters": 10 * ctx.timer.iters},
             native_scan_sec_per_iter=native, split_scans_per_s=n * t / sec)
+
+
+def _aging_trace(calls, warm: bool) -> dict:
+    """One torch.profiler (CUPTI) trace of ``calls()``: the split
+    kernel's launches by its wrapper, its kernel records in the trace,
+    the runtime's launch calls recorded, and the earliest start of a
+    kept kernel record less that of its own launch call (by correlation
+    id; a kernel cannot start before it is launched). ``warm``: the
+    window opens one profiler step after CUPTI was switched on, a kernel
+    run and waited for in that step (the Timer's cure for a cold
+    trace)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from ..align import cuda_splitscore as cs
+    before = cs.KERNEL_LAUNCHES["split_score"]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if warm:
+        with profile(activities=acts, schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            prof.step()
+            calls()
+            torch.cuda.synchronize()
+            prof.step()
+    else:
+        with profile(activities=acts) as prof:
+            calls()
+            torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    kernels = {e.correlation_id(): e for e in events
+               if e.device_type() == DeviceType.CUDA
+               and kernel_of(e.name()) == "split_score"}
+    launch_calls = [e for e in events if e.device_type() == DeviceType.CPU
+                    and "LaunchKernel" in e.name()]
+    lead = [kernels[e.correlation_id()].start_ns() - e.start_ns()
+            for e in launch_calls if e.correlation_id() in kernels]
+    launches = cs.KERNEL_LAUNCHES["split_score"] - before
+    return {"trace": "warm" if warm else "cold", "launches": launches,
+            "kernel_records": len(kernels),
+            "runtime_launch_calls": len(launch_calls),
+            "lost": launches - len(kernels),
+            "earliest_record_minus_its_call_us": (min(lead) / 1e3 if lead
+                                                  else None)}
+
+
+def bench_trace_aging(ctx):
+    """The profiler's lost launches, reproduced: 12 calls of the split
+    router (one split-kernel launch each) in a trace, cold and warm
+    (``_aging_trace``), now and every 40 s until ``--aging-s`` seconds
+    after this process's first trace. Beside it a child started at the
+    same time (unless ``--aging-s`` is 0) whose first trace comes only
+    after ``--aging-s`` seconds: as old a process, as young a trace. A
+    record a trace, with its process and its seconds since that
+    process's first trace."""
+    import subprocess
+
+    from ..scoring.device_scan import DeviceScanContext
+    child = None
+    if ctx.args.aging_s:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "manta_tpu_torch.tools.device_timing",
+             "--kernel", "trace_aging", "--aging-s", "0",
+             "--first-trace-after-s", str(ctx.args.aging_s)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=REPO)
+    batch, idx, qconv, targets, ranges = _router_inputs(ctx)
+    scan = DeviceScanContext(device=ctx.device)
+
+    def calls():
+        for _ in range(12):
+            scan.scan_multi(FLANK, batch, idx, qconv, targets, ranges)
+
+    calls()
+    delay = ctx.args.first_trace_after_s
+    time.sleep(delay)
+    first = time.time()
+    age = 0
+    while True:
+        for warm in (False, True):
+            rec = _aging_trace(calls, warm)
+            ctx.emit({"kernel": "trace_aging", "device": ctx.device_name,
+                      "process": (f"first trace {delay} s after its start"
+                                  if delay else "this"),
+                      "since_first_trace_s": round(time.time() - first, 1),
+                      **rec})
+        age += 40
+        if age > ctx.args.aging_s:
+            break
+        time.sleep(max(0.0, first + age - time.time()))
+    if child is not None:
+        out, err = child.communicate()
+        if child.returncode != 0:
+            raise RuntimeError(f"the control child failed:\n{err}")
+        for ln in out.splitlines():
+            rec = json.loads(ln)
+            if rec.get("kernel") == "trace_aging":
+                ctx.emit(rec)
 
 
 def bench_split_mxu(ctx):
@@ -794,7 +921,7 @@ PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # ones a split-scan term
 KERNEL_OPS = {"jump_score": (20, "cells"), "jump_score_bounded": (29, "cells"),
               "split_score": (6, "terms")}
-WORKLOADS = ("wgs", "high-span", "rna")
+WORKLOADS = ("wgs", "high-span", "rna", "joint", "tumor")
 
 
 def kernel_of(event_name: str) -> str | None:
@@ -811,25 +938,6 @@ def kernel_of(event_name: str) -> str | None:
     return "jump_score_bounded" if bounded else "jump_score"
 
 
-def _counters() -> dict:
-    """The host-side counts of this process: each wrapper's launches,
-    each kernel's work, and the calls and walls of the seams that reach
-    it (the contig dispatcher; the split router's exact scans)."""
-    import copy
-    from ..align import cuda_jumpscore as cj
-    from ..align import cuda_splitscore as cs
-    from ..align import device_jumpscore as dj
-    from ..scoring import device_scan as ds
-    scan = ds.SCAN_STATS
-    return {"launches": {**cj.KERNEL_LAUNCHES, **cs.KERNEL_LAUNCHES},
-            "work": copy.deepcopy({**cj.KERNEL_WORK, **cs.KERNEL_WORK}),
-            "calls": {"jump_score": dj.DISPATCH_STATS["calls"],
-                      "jump_score_bounded": 0,
-                      "split_score": scan["exact"] + scan["fallback"]},
-            "wall": {"jump_score": dj.DISPATCH_STATS["wall"],
-                     "jump_score_bounded": 0.0, "split_score": scan["wall"]}}
-
-
 def profile_workflow(run, device) -> dict:
     """Call ``run()``, a workflow at -j 1 in this process (forked
     workers would escape the trace), and return what the kernels did in
@@ -837,9 +945,14 @@ def profile_workflow(run, device) -> dict:
     device, the device events of a torch.profiler (CUPTI) trace around
     the whole call as (name, start us, duration us), sorted by start;
     None on the cpu. Start CUDA and load the kernels before: their
-    start-up would otherwise fall into the run's phase 2."""
+    start-up would otherwise fall into the run's phase 2. A process
+    whose first trace was minutes ago can lose launches from a trace
+    (``--kernel trace_aging``): the launches in the trace are held
+    against the wrapper's count, never assumed."""
     import torch
-    before = _counters()
+
+    from ..parallel.worker_trace import counts
+    before = counts()
     events = None
     if torch.device(device).type == "cuda":
         from torch.autograd import DeviceType
@@ -855,7 +968,7 @@ def profile_workflow(run, device) -> dict:
                         key=lambda e: e[1])
     else:
         run()
-    after = _counters()
+    after = counts()
 
     def minus(a, b):
         return ({k: minus(a[k], b[k]) for k in a} if isinstance(a, dict)
@@ -863,18 +976,26 @@ def profile_workflow(run, device) -> dict:
     return {"counts": minus(after, before), "events": events}
 
 
-def phase2_wall(run_dir: str) -> float:
-    """Seconds of phase 2 (candidates, assembly, scoring) from the run's
-    workspace/workflow_log.txt: from its first line to the line that
-    counts the processed graph edges."""
+def phase2_window(run_dir: str) -> tuple[float, float]:
+    """Phase 2 (candidates, assembly, scoring) of the run's
+    workspace/workflow_log.txt, from its first line to the line that
+    counts the processed graph edges, as seconds since the epoch (the
+    log's local wall-clock stamps, to the millisecond)."""
     import datetime
     at = {}
     with open(os.path.join(run_dir, "workspace", "workflow_log.txt")) as f:
         for ln in f:
             for key in ("generating and scoring", "processed "):
                 if ln[26:].startswith(key) and key not in at:
-                    at[key] = datetime.datetime.fromisoformat(ln[1:24])
-    return (at["processed "] - at["generating and scoring"]).total_seconds()
+                    at[key] = datetime.datetime.fromisoformat(
+                        ln[1:24]).timestamp()
+    return at["generating and scoring"], at["processed "]
+
+
+def phase2_wall(run_dir: str) -> float:
+    """Seconds of phase 2 from the run's workspace/workflow_log.txt."""
+    start, end = phase2_window(run_dir)
+    return round(end - start, 3)
 
 
 def _copy_way(name: str) -> str | None:
@@ -888,7 +1009,7 @@ def _copy_way(name: str) -> str | None:
 def _busy_us(events) -> float:
     """Time the device was busy: the union of the events' intervals."""
     busy, end = 0.0, float("-inf")
-    for _name, start, dur in events:
+    for _name, start, dur, *_pid in events:
         stop = start + dur
         if stop > end:
             busy += stop - max(start, end)
@@ -899,13 +1020,15 @@ def _busy_us(events) -> float:
 def workflow_records(reading: dict, phase2_s: float, device_name: str,
                      workload: str, mode: str) -> list[dict]:
     """One record a kernel and one for phase 2 from ``profile_workflow``'s
-    ``reading``. A kernel's record: its launches by the wrapper and in
-    the trace, the calls of the seam that reaches it and their wall,
-    device ms in all and a launch, the work counters, the bound (the
-    larger of the bytes over the memory rate and the useful work's
-    operations over the float32 rate; for the jump kernels also over
-    the int32 rate) and the share of it reached, and the copies on its
-    side of the trace: host-to-device ones before each launch, the
+    ``reading`` (or ``merge_worker_traces``', whose events carry their
+    process as a fourth item: copies are given to launches within a
+    process, one stream each). A kernel's record: its launches by the
+    wrapper and in the trace, the calls of the seam that reaches it and
+    their wall, device ms in all and a launch, the work counters, the
+    bound (the larger of the bytes over the memory rate and the useful
+    work's operations over the float32 rate; for the jump kernels also
+    over the int32 rate) and the share of it reached, and the copies on
+    its side of the trace: host-to-device ones before each launch, the
     device-to-host one after. On the cpu the device fields are None.
     The phase-2 record: the wall, the device's busy time (the union of
     every device event: kernels, copies, memsets; phases 0 and 1 and
@@ -916,8 +1039,10 @@ def workflow_records(reading: dict, phase2_s: float, device_name: str,
     per = {k: {"ms": 0.0, "n": 0, "h2d": [0, 0.0], "d2h": [0, 0.0]}
            for k in KERNEL_OPS}
     by_name: dict[str, list] = {}
-    pending, last = [], None
-    for name, start, dur in events or ():
+    # process -> (copies to the card waiting for a launch, last kernel)
+    stream: dict = {}
+    for name, start, dur, *pid in events or ():
+        pending, last = stream.setdefault(tuple(pid), ([], [None]))
         entry = by_name.setdefault(name, [0, 0.0])
         entry[0] += 1
         entry[1] += dur / 1e3
@@ -928,12 +1053,13 @@ def workflow_records(reading: dict, phase2_s: float, device_name: str,
             for d in pending:
                 per[kernel]["h2d"][0] += 1
                 per[kernel]["h2d"][1] += d / 1e3
-            pending, last = [], kernel
+            pending.clear()
+            last[0] = kernel
         elif way == "h2d":
             pending.append(dur)
-        elif way == "d2h" and last is not None:
-            per[last]["d2h"][0] += 1
-            per[last]["d2h"][1] += dur / 1e3
+        elif way == "d2h" and last[0] is not None:
+            per[last[0]]["d2h"][0] += 1
+            per[last[0]]["d2h"][1] += dur / 1e3
     out = []
     for kernel, (ops_per_unit, unit) in KERNEL_OPS.items():
         work = counts["work"][kernel]
@@ -981,10 +1107,13 @@ def workflow_records(reading: dict, phase2_s: float, device_name: str,
 
 def workflow_inputs(workload: str, prefix: str | None):
     """(normal BAMs, tumor BAMs, reference, run_workflow keywords) of a
-    workload: a germline WGS-shaped one (tools.wgs_workload), a
-    tumor-only exome run of the high-span BAM (tools.stress_workload) or
-    RNA fusion mode on a tumor BAM; ``prefix``.bam and ``prefix``.fa,
-    for RNA by default the demo tumor BAM and the demo reference."""
+    workload: germline on a WGS-shaped BAM (``wgs``, tools.wgs_workload),
+    joint germline on every sample of a ``tools.wgs_workload --samples
+    K`` prefix (``joint``: P.s0.bam, P.s1.bam, ...), tumor-only on a
+    WGS-shaped BAM (``tumor``), a tumor-only exome run of the high-span
+    BAM (``high-span``, tools.stress_workload) or RNA fusion mode on a
+    tumor BAM (``rna``); ``prefix``.bam and ``prefix``.fa, for RNA by
+    default the demo tumor BAM and the demo reference."""
     if prefix is None:
         if workload != "rna":
             raise ValueError(f"--workload {workload} needs --prefix")
@@ -993,16 +1122,208 @@ def workflow_inputs(workload: str, prefix: str | None):
     bam, fa = prefix + ".bam", prefix + ".fa"
     if workload == "wgs":
         return [bam], [], fa, {}
+    if workload == "joint":
+        bams = []
+        while os.path.exists(f"{prefix}.s{len(bams)}.bam"):
+            bams.append(f"{prefix}.s{len(bams)}.bam")
+        if not bams:
+            raise FileNotFoundError(f"no {prefix}.s0.bam: --workload joint "
+                                    "takes a tools.wgs_workload --samples "
+                                    "K prefix")
+        return bams, [], fa, {}
+    if workload == "tumor":
+        return [], [bam], fa, {}
     return [], [bam], fa, ({"is_exome": True} if workload == "high-span"
                            else {"is_rna": True})
 
 
+def read_worker_traces(directory: str) -> list[dict]:
+    """The phase-2 workers' trace files in ``directory``
+    (``parallel/worker_trace``), in the order of their pids."""
+    import glob
+    paths = glob.glob(os.path.join(directory, "device_trace.*.json"))
+    traces = []
+    for path in paths:
+        with open(path) as f:
+            traces.append(json.load(f))
+    return sorted(traces, key=lambda t: t["pid"])
+
+
+# the phase-2 window's stamps are cut to the millisecond
+WINDOW_SLACK_NS = 2_000_000
+
+
+def merge_worker_traces(traces: list[dict],
+                        window: tuple[float, float]) -> dict:
+    """One reading for ``workflow_records`` from the trace files of a
+    -j N run's phase-2 workers: the counts summed over the workers whose
+    bin finished (a worker that died or was retried counts nowhere), and
+    their device events (None when they scored on the cpu) as (name,
+    start us after phase 2's start, duration us, pid), sorted by start,
+    every worker on the host's wall clock. ``window`` is phase 2 as
+    seconds since the epoch (``phase2_window``): events outside it are
+    counted, not kept. Adds ``workers`` (finished files),
+    ``worker_files``, ``workers_launched`` (a kernel launched),
+    ``cuda_startup_s`` (the workers' context start-ups), ``clocks``,
+    ``events_outside_phase2`` and ``overlapping_kernels`` (kernels of one
+    process that overlap in time: one stream cannot, a clock can)."""
+    from ..parallel.worker_trace import zero_counts
+    t0 = int(round(window[0] * 1e3)) * 1_000_000
+    t1 = int(round(window[1] * 1e3)) * 1_000_000
+    done = [t for t in traces if t["finished"]]
+    counts = zero_counts()
+    for t in done:
+        for key, per in t["counts"].items():
+            for kernel, v in per.items():
+                if isinstance(v, dict):
+                    for k, n in v.items():
+                        counts[key][kernel][k] += n
+                else:
+                    counts[key][kernel] += v
+    on_card = any(t["events"] is not None for t in done)
+    events, outside, overlaps = [], 0, 0
+    for t in done:
+        end = None
+        for name, start, dur in t["events"] or ():
+            if kernel_of(name) is not None:
+                if end is not None and start < end:
+                    overlaps += 1
+                end = start + dur if end is None else max(end, start + dur)
+            if start < t0 - WINDOW_SLACK_NS or \
+                    start + dur > t1 + WINDOW_SLACK_NS:
+                outside += 1
+                continue
+            events.append((name, (start - t0) / 1e3, dur / 1e3, t["pid"]))
+    events.sort(key=lambda e: e[1])
+    return {"counts": counts, "events": events if on_card else None,
+            "workers": len(done), "worker_files": len(traces),
+            "workers_launched": sum(
+                1 for t in done if any(t["counts"]["launches"].values())),
+            "cuda_startup_s": sorted(t["cuda_startup_s"] for t in done
+                                     if t["cuda_startup_s"] is not None),
+            "marks_s": _marks(done, window[0]),
+            "clocks": sorted({t["clock"] for t in done if t["clock"]}),
+            "events_outside_phase2": outside if on_card else None,
+            "overlapping_kernels": overlaps if on_card else None}
+
+
+def _marks(traces: list[dict], start: float) -> dict:
+    """Each mark of the workers' lives (``parallel/worker_trace``) as
+    seconds after phase 2's start, its minimum, median and maximum over
+    the workers that have it, and the spans the trace itself costs: its
+    start (the profiler's, after the context) and its stop."""
+    from statistics import median
+    per: dict[str, list] = {}
+    for t in traces:
+        m = t.get("marks") or {}
+        for name, at in m.items():
+            per.setdefault(name, []).append(at - start)
+        for span, (a, b) in {"trace_start_s": ("context_made",
+                                                "trace_started"),
+                             "trace_stop_s": ("exit", "trace_stopped")
+                             }.items():
+            if a in m and b in m:
+                per.setdefault(span, []).append(m[b] - m[a])
+    return {name: {"min": min(v), "median": median(v), "max": max(v)}
+            for name, v in per.items()}
+
+
+# the kernels' launches as the workers' exit lines count them
+# (tools/device_counts.parse_lines)
+EXIT_LINE_LAUNCHES = {"jump_score": "k1_launches", "jump_score_bounded": None,
+                      "split_score": "k3_launches"}
+
+
+def _workers_records(reading: dict, lines: dict, records: list[dict],
+                     jobs: int) -> list[str]:
+    """Adds the -j N fields to ``records`` (``workflow_records`` of a
+    merged reading; ``lines`` the exit lines' sums) and returns what
+    disagrees: launches in the traces, by the wrappers and on the exit
+    lines; the seams' calls and the work against the exit lines; events
+    outside phase 2 or kernels overlapping in a process."""
+    from statistics import median
+    wrong = []
+    exit_calls = {"jump_score": lines["dispatches"], "jump_score_bounded": 0,
+                  "split_score": lines["split_scans"]}
+    exit_work = {"jump_score": [lines[k] for k in (
+                     "k1_useful_cells", "k1_padded_cells", "k1_bytes")],
+                 "jump_score_bounded": [0, 0, 0],
+                 "split_score": [lines[k] for k in (
+                     "k3_useful_terms", "k3_padded_terms", "k3_bytes")]}
+    for rec in records[:-1]:
+        kernel = rec["kernel"]
+        key = EXIT_LINE_LAUNCHES[kernel]
+        rec["launches_exit_lines"] = lines[key] if key else 0
+        launches = {rec["launches_wrapper"], rec["launches_exit_lines"]}
+        if rec["launches_profiler"] is not None:
+            launches.add(rec["launches_profiler"])
+        if len(launches) > 1:
+            wrong.append(f"{kernel}: launches in the traces "
+                         f"{rec['launches_profiler']}, by the wrappers "
+                         f"{rec['launches_wrapper']}, on the exit lines "
+                         f"{rec['launches_exit_lines']}")
+        got = [rec["useful_work"], rec["padded_work"], rec["bytes"]]
+        if rec["calls"] != exit_calls[kernel] or got != exit_work[kernel]:
+            wrong.append(f"{kernel}: {rec['calls']} calls and work {got} "
+                         f"in the traces' counts, {exit_calls[kernel]} and "
+                         f"{exit_work[kernel]} on the exit lines")
+    startup = reading["cuda_startup_s"]
+    records[-1].update(
+        jobs=jobs, workers=reading["workers"],
+        worker_files=reading["worker_files"],
+        workers_launched=reading["workers_launched"],
+        cuda_startup_s=({"min": startup[0], "median": median(startup),
+                         "max": startup[-1], "workers": len(startup)}
+                        if startup else None),
+        clocks=reading["clocks"], worker_marks_s=reading["marks_s"],
+        events_outside_phase2=reading["events_outside_phase2"],
+        overlapping_kernels=reading["overlapping_kernels"])
+    if not reading["workers"]:
+        wrong.append("no phase-2 worker left a finished trace")
+    if reading["events_outside_phase2"]:
+        wrong.append(f"{reading['events_outside_phase2']} device events "
+                     "outside phase 2's window")
+    if reading["overlapping_kernels"]:
+        wrong.append(f"{reading['overlapping_kernels']} kernels overlap "
+                     "another of their process")
+    return wrong
+
+
+def _run_in_workers(run, run_dir: str):
+    """``run()``, a workflow at -j N, with its phase-2 workers' device
+    trace armed (``parallel/worker_trace``) and this process's file
+    descriptor 2 teed for their exit lines: (merged reading, the exit
+    lines' sums)."""
+    from ..parallel import worker_trace
+    from .device_counts import WorkflowCounts
+    workspace = os.path.join(run_dir, "workspace")
+    worker_trace.arm(workspace)
+    try:
+        with WorkflowCounts() as wc:
+            run()
+    finally:
+        worker_trace.disarm()
+    reading = merge_worker_traces(read_worker_traces(workspace),
+                                  phase2_window(run_dir))
+    return reading, wc.counts()
+
+
 def bench_workflow(ctx):
-    """The workflow mode: ``run_workflow`` at -j 1 in this process
-    (``--workload``, ``--mode``, ``--prefix``, ``--run-dir``, emptied
-    first), in a torch.profiler window on the card, then
-    ``workflow_records``. Each kernel's launches in the trace must
-    equal its wrapper's count, and on the cpu no kernel may launch."""
+    """The workflow mode: ``run_workflow`` (``--workload``, ``--mode``,
+    ``--prefix``, ``--jobs``, ``--run-dir``, emptied first), then
+    ``workflow_records``.
+
+    At -j 1 the run is in this process, in a torch.profiler window on
+    the card; each kernel's launches in the trace must equal its
+    wrapper's count, and on the cpu no kernel may launch.
+
+    At -j N this process forks the workers and touches no CUDA before
+    they are gone (a CUDA context made before a fork breaks CUDA in the
+    workers): each phase-2 worker traces itself (``_run_in_workers``),
+    and the records carry the merge of their traces and the -j N
+    fields (``_workers_records``); the launches in the traces, by the
+    wrappers and on the exit lines must all be equal, and the seams'
+    calls and work equal to the exit lines'."""
     import shutil
 
     import torch
@@ -1014,31 +1335,43 @@ def bench_workflow(ctx):
     run_dir = args.run_dir or os.path.join(
         REPO, "results_torch", f"workflow_{args.workload}_{args.mode}")
     shutil.rmtree(run_dir, ignore_errors=True)
-    if ctx.device.type == "cuda":
+    if ctx.device.type == "cuda" and args.jobs == 1:
         from ..align import cuda_jumpscore, cuda_splitscore
         cuda_jumpscore._lib()
         if args.mode == "exact":
             cuda_splitscore._lib()
         torch.zeros(1, device=ctx.device)
         torch.cuda.synchronize()
-    reading = profile_workflow(
-        lambda: run_workflow(normal, tumor, fasta, run_dir, n_jobs=1,
-                             use_device_scoring=args.mode,
-                             device=ctx.device, verbose=False, **kw),
-        ctx.device)
-    records = workflow_records(reading, phase2_wall(run_dir),
-                               ctx.device_name, args.workload, args.mode)
+
+    def run():
+        run_workflow(normal, tumor, fasta, run_dir, n_jobs=args.jobs,
+                     use_device_scoring=args.mode, device=ctx.device,
+                     verbose=False, **kw)
+
+    if args.jobs == 1:
+        reading = profile_workflow(run, ctx.device)
+    else:
+        reading, lines = _run_in_workers(run, run_dir)
+    device_name = (torch.cuda.get_device_name(ctx.device)
+                   if ctx.device.type == "cuda" else ctx.device_name)
+    records = workflow_records(reading, phase2_wall(run_dir), device_name,
+                               args.workload, args.mode)
+    if args.jobs == 1:
+        wrong = [f"{r['kernel']}: {r['launches_profiler']} launches in the "
+                 f"trace, {r['launches_wrapper']} by its wrapper"
+                 for r in records[:-1]
+                 if r["launches_profiler"] not in (None,
+                                                   r["launches_wrapper"])]
+    else:
+        wrong = _workers_records(reading, lines, records, args.jobs)
+    if ctx.device.type == "cpu":
+        wrong += [f"{r['kernel']} launched on the cpu" for r in records[:-1]
+                  if r["launches_wrapper"]]
     for rec in records:
         rec["run_dir"] = run_dir
         ctx.emit(rec)
-    if ctx.device.type == "cpu":
-        wrong = [r["kernel"] for r in records[:-1] if r["launches_wrapper"]]
-    else:
-        wrong = [r["kernel"] for r in records[:-1]
-                 if r["launches_profiler"] != r["launches_wrapper"]]
     if wrong:
-        raise AssertionError(f"launches in the trace != the wrapper's "
-                             f"count (or a launch on the cpu): {wrong}")
+        raise AssertionError("; ".join(wrong))
 
 
 # in the order "all" runs them: the anchor, the kernels, then the plain
@@ -1059,10 +1392,11 @@ BENCHES = {
 # runs on the card only (on the cpu its plain form takes ~0.15 s a call)
 EXTRA_BENCHES = {"jump_layouts": bench_jump_layouts,
                  "scan_router": bench_scan_router,
-                 "workflow": bench_workflow}
+                 "workflow": bench_workflow,
+                 "trace_aging": bench_trace_aging}
 # the benches that launch a hand-written kernel: the card only
 CUDA_ONLY = ("jump_cuda", "jump_cuda_bounded", "jump_layouts", "split_cuda",
-             "split_cuda_factored")
+             "split_cuda_factored", "trace_aging")
 
 
 def _shape(n):
@@ -1104,9 +1438,11 @@ def main(argv=None) -> int:
     ap.add_argument("--layout-loops", type=int, default=3,
                     help="jump_layouts: timed loops a layout")
     ap.add_argument("--workload", default="wgs", choices=WORKLOADS,
-                    help="workflow: germline on PREFIX.bam (wgs), "
-                         "tumor-only exome (high-span) or RNA fusion mode "
-                         "(rna; the demo tumor BAM without --prefix)")
+                    help="workflow: germline on PREFIX.bam (wgs), joint "
+                         "germline on PREFIX.s<k>.bam (joint), tumor-only "
+                         "(tumor), tumor-only exome (high-span) or RNA "
+                         "fusion mode (rna; the demo tumor BAM without "
+                         "--prefix)")
     ap.add_argument("--mode", default="jump", choices=("jump", "exact"),
                     help="workflow: the device scoring mode")
     ap.add_argument("--prefix", default=None,
@@ -1114,16 +1450,31 @@ def main(argv=None) -> int:
     ap.add_argument("--run-dir", default=None,
                     help="workflow: the run directory, emptied first "
                          "(default results_torch/workflow_<workload>_<mode>)")
+    ap.add_argument("--aging-s", type=int, default=240,
+                    help="trace_aging: seconds after this process's first "
+                         "trace to keep tracing")
+    ap.add_argument("--first-trace-after-s", type=int, default=0,
+                    help="trace_aging: seconds this process waits before "
+                         "its first trace")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="workflow: the run's -j; above 1 each phase-2 "
+                         "worker traces its own device work")
     args = ap.parse_args(argv)
+    if args.jobs < 1:
+        ap.error("--jobs must be at least 1")
 
     import torch
     device = torch.device(args.device)
+    # the workflow at -j N forks after this: the probe asks NVML
+    # (device_count) and makes no CUDA context, and the name is read
+    # after the run
+    forks = args.kernel == "workflow" and args.jobs > 1
     if device.type == "cuda":
-        if not torch.cuda.is_available():
+        if torch.cuda.device_count() == 0:
             print(json.dumps({"error": "no CUDA device; pass --device cpu to "
                                        "time the plain forms on the host"}))
             return 1
-        device_name = torch.cuda.get_device_name(0)
+        device_name = None if forks else torch.cuda.get_device_name(0)
     else:
         device_name = "cpu"
     names = list(BENCHES) if args.kernel == "all" else [args.kernel]

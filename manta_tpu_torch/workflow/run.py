@@ -883,6 +883,7 @@ def _run_edges_parallel(all_edges, locus_set, build_components, run_edges,
     recognizes completed bins and never reuses a stale work plan."""
     import multiprocessing as mp
     import pickle
+    from ..parallel import worker_trace
     from ..workflow.stats import EdgeStatsTracker
     from ..workflow.tasks import content_digest
     # the merged SVGenTotalHours is the SUM of bin-worker lifetimes
@@ -926,6 +927,8 @@ def _run_edges_parallel(all_edges, locus_set, build_components, run_edges,
             return False
 
     def worker(bi, edges):
+        # a no-op unless the timing tool armed the workers' device trace
+        worker_trace.enter_phase2_worker(bi)
         from ..io.bam import BamReader
         from ..io.bgzf import set_worker_io_threads
         fanout = min(max(1, n_jobs), len(bins))
@@ -945,6 +948,7 @@ def _run_edges_parallel(all_edges, locus_set, build_components, run_edges,
         with open(pkl + ".tmp", "wb") as f:
             pickle.dump((bin_digests[bi], log_lines, comps["tracker"]), f)
         os.replace(pkl + ".tmp", pkl)
+        worker_trace.bin_finished()
         queue.put(bi)
 
     task_names = [f"hygen.bin.{bi:04d}.{bin_digests[bi]}"

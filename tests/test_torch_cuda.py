@@ -739,3 +739,38 @@ def test_workflow_mode_on_the_wgs_shaped_jump_run(cuda, tmp_path):
     assert 0 < k1["device_ms"] <= k1["path_wall_s"] * 1e3
     assert k1["h2d"]["count"] > 0 and k1["d2h"]["count"] > 0
     assert 0 < phase2["busy_share"] < 1
+
+
+def test_workflow_mode_at_jobs_2_traces_the_workers(cuda, tmp_path):
+    """The timing tool at --jobs 2 in exact on a small WGS-shaped
+    workload (1 x 2 Mb at 20x), in a child (it forks the workers; this
+    process has a CUDA context): every phase-2 worker that scored traced
+    itself; K3's launches in the traces equal the wrappers' sum and the
+    exit lines', its device time is no more than the router's summed
+    wall, and the busy union no more than phase 2's wall."""
+    prefix = str(tmp_path / "w")
+    gen = subprocess.run(
+        [sys.executable, "-m", "manta_tpu_torch.tools.wgs_workload", "--out",
+         prefix, "--chroms", "1", "--mb", "2", "--depth", "20", "--seed",
+         "7"], capture_output=True, text=True, timeout=600)
+    assert gen.returncode == 0, gen.stderr[-3000:]
+    proc = subprocess.run(
+        [sys.executable, "-m", "manta_tpu_torch.tools.device_timing",
+         "--kernel", "workflow", "--workload", "wgs", "--mode", "exact",
+         "--prefix", prefix, "--jobs", "2", "--run-dir",
+         str(tmp_path / "run")], capture_output=True, text=True,
+        timeout=900)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    records = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith("{")]
+    k3 = next(r for r in records if r.get("kernel") == "split_score")
+    phase2 = next(r for r in records if r.get("metric") == "workflow_phase2")
+    assert k3["launches_profiler"] == k3["launches_wrapper"] == \
+        k3["launches_exit_lines"] == k3["calls"] > 0
+    assert 0 < k3["device_ms"] <= k3["path_wall_s"] * 1e3
+    assert phase2["workers"] == phase2["worker_files"] >= 1
+    assert phase2["workers_launched"] >= 1
+    assert phase2["cuda_startup_s"]["min"] > 0
+    assert phase2["events_outside_phase2"] == phase2["overlapping_kernels"] \
+        == 0
+    assert 0 < phase2["device_busy_ms"] <= phase2["phase2_wall_s"] * 1e3
