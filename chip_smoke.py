@@ -162,10 +162,48 @@ share of phase 2, at -j 1 and in the -j 8 workers).
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the exit code is non-zero and that line is not printed. Without a CUDA
 device it exits non-zero before any result.
+
+    python3 chip_smoke.py --genome [--chroms 24|12|6] [--reason TEXT]
+        [--steps gen,off,jump,exact,auto,check,armed,shapes]
+
+runs, instead of the phases above, the whole-genome phase: the JAX
+package's full-size germline workload (24 chromosomes x 100 Mb at 35x,
+seed 7: 838,874,597 reads) through the port's main path at -j 8, one
+JSON line a step, printed as it ends and appended to
+results_torch/genome/steps.jsonl (--out-dir, beside the runs'
+artifacts) so that a cut run keeps what it measured:
+
+a. gen: the host's cores, memory and free disk, then the port's
+   generator (python -m manta_tpu_torch.tools.wgs_workload) in a child
+   under the memory sampler, beside the kernels' build: its walls
+   (simulation, external merge), peak memory, BAM size and read count
+   (at full size the JAX package's); it refuses to start when the disk
+   cannot hold the merge's runs;
+b. off, jump, exact, auto: python -m manta_tpu_torch.tools.
+   bench_wgs_at_scale --jobs 8 in a child, unarmed: wall, phase walls,
+   serial tail, CPU seconds, the process tree's peak memory (the parent
+   and the workers apart), edges, the device work on the workers' exit
+   lines, the resolved mode (auto resolves to jump on the card);
+c. check: the truth checker resumed on each run at once; the lines
+   equal, the diploid bodies byte-identical, and at full size the off
+   run's line equal to the JAX package's round-5 line (R05_TRUTH);
+d. armed: jump and exact through python -m manta_tpu_torch.tools.
+   device_timing --kernel workflow --jobs 8, each phase-2 worker tracing
+   itself: launches (traces = wrappers = exit lines = the seams' calls),
+   device ms, the shapes launched, work, bound, copies, the busy share
+   of phase 2, the workers' CUDA start-ups, no event outside phase 2;
+e. shapes: every K1 bucket and K3 tier the armed runs launched at, one
+   launch each on seeded inputs of that shape against the plain form on
+   the card (bit-equal), with its device time and bound.
+
+--chroms cuts the chromosome count (24, 12, 6 in that order; printed
+under "reduced" with --reason); depth, length, seed and -j 8 stay. The
+phase ends with the card's line and the same last line.
 """
 
 from __future__ import annotations
 
+import glob
 import gzip
 import json
 import os
@@ -371,22 +409,25 @@ def environment() -> str:
     return card
 
 
-def build() -> None:
-    """Build every kernel library from source, one nvcc process per
-    source, all started together; print registers and spills, and fail if
-    any kernel spills."""
+def build(names=tuple(KERNELS)) -> None:
+    """Build the kernel libraries ``names`` (every one by default) from
+    source, one nvcc process per source, all started together; print
+    registers and spills, and fail if any kernel spills."""
     phase("build")
     from concurrent.futures import ThreadPoolExecutor
 
     from manta_tpu_torch import _build
     from manta_tpu_torch.align import cuda_jumpscore, cuda_splitscore
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(_build.build, KERNELS))
-    cuda_jumpscore.max_query_width()          # loads
-    cuda_jumpscore._bounded_lib()
-    cuda_splitscore._lib()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))
+    loads = {"jump_score": cuda_jumpscore.max_query_width,
+             "jump_score_bounded": cuda_jumpscore._bounded_lib,
+             "split_score": cuda_splitscore._lib}
+    for name in names:
+        loads[name]()
     spilled = []
-    for name, (source, _replaces) in KERNELS.items():
+    for name in names:
+        source = KERNELS[name][0]
         secs = _build.BUILD_SECONDS.get(name)
         print(f"{source} -> manta_tpu_torch/build/lib{name}.so "
               f"({' '.join(_build.NVCC_FLAGS[:2])}): "
@@ -1126,7 +1167,9 @@ def _reset_counts():
     from manta_tpu_torch.align import cuda_jumpscore, cuda_splitscore
     from manta_tpu_torch.align import device_jumpscore as dj
     from manta_tpu_torch.align import device_splitscore as ds
-    from manta_tpu_torch.scoring.device_scan import EXACT_COPIES, SCAN_STATS
+    from manta_tpu_torch.scoring.device_scan import (
+        EXACT_COPIES, SCAN_STATS, SCAN_TIERS,
+    )
     for launches in (cuda_jumpscore.KERNEL_LAUNCHES,
                      cuda_splitscore.KERNEL_LAUNCHES):
         for k in launches:
@@ -1138,6 +1181,7 @@ def _reset_counts():
     dj.PLAIN_CALLS["cuda"] = 0
     ds.PLAIN_CALLS["cuda"] = 0
     dj.DISPATCH_BUCKETS.clear()
+    SCAN_TIERS.clear()
     for stats in (dj.DISPATCH_STATS, SCAN_STATS, EXACT_COPIES):
         for k in stats:
             stats[k] = 0.0 if k in ("wall", "first_wall") else 0
@@ -2630,13 +2674,680 @@ def dry_run() -> dict:
             for kernel in KERNELS}
 
 
-def main() -> None:
+# ------------------------------------------------------------ --genome
+# the opt-in whole-genome phase: the JAX package's full-size germline
+# workload (docs/PERF_r05.md section 5), 24 chromosomes x 100 Mb at 35x,
+# seed 7, 838,874,597 reads, through the port's main path at -j 8
+GENOME = {"chroms": 24, "mb": 100, "depth": 35, "seed": 7}
+GENOME_READS = 838_874_597
+# the workload's read length (tools/wgs_workload.READ_LEN)
+READ_LEN_WGS = 100
+GENOME_JOBS = 8
+# the chromosome counts a cut may take, in this order; depth, chromosome
+# length, seed and -j 8 are never cut
+GENOME_CUTS = (24, 12, 6)
+GENOME_STEPS = ("gen", "off", "jump", "exact", "auto", "check", "armed",
+                "shapes")
+GENOME_ARMED = ("jump", "exact")
+GENOME_WORK = os.path.join(WORK, "genome")
+GENOME_OUT = os.path.join(REPO, "results_torch", "genome")
+# the JAX package's truth line for its off run on that workload, as
+# benchmarks/results/wgs840_truthcheck_r05.json records it (the port
+# reads no file of the JAX package; tests/test_torch_genome_scale.py
+# holds this copy equal to the file)
+R05_TRUTH = {"mode": "germline", "truth_n": 23681, "recall": 0.9948,
+             "gt_acc": 0.988, "fp_records": 0,
+             "by_type": {"DEL": "8467/8468", "INV": "4671/4673",
+                         "INS": "5881/5940", "DUP": "4536/4598",
+                         "BND": "2/2"}}
+
+
+def parse_args(argv=None):
+    """The smoke's options: none for the default phases; ``--genome``
+    and its options for the whole-genome phase."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="Smoke run of manta_tpu_torch on one CUDA GPU; "
+                    "--genome runs the whole-genome phase instead")
+    ap.add_argument("--genome", action="store_true",
+                    help="the whole-genome phase: generate the 24 x 100 "
+                         "Mb, 35x, seed 7 workload and run the main path "
+                         "on it (not part of the default smoke)")
+    ap.add_argument("--chroms", type=int, default=None,
+                    help=f"cut the chromosome count ({GENOME_CUTS} in "
+                         "that order); printed under 'reduced'")
+    ap.add_argument("--mb", type=int, default=None,
+                    help="chromosome length in Mb (a rehearsal only; "
+                         "the phase itself is never cut in length)")
+    ap.add_argument("--jobs", type=int, default=None,
+                    help=f"workers a run (default {GENOME_JOBS}; other "
+                         "counts only in a rehearsal)")
+    ap.add_argument("--reason", default=None,
+                    help="why the run was cut, printed under 'reduced'")
+    ap.add_argument("--steps", default=",".join(GENOME_STEPS),
+                    help=f"the steps to run, of {','.join(GENOME_STEPS)}")
+    ap.add_argument("--work-dir", default=GENOME_WORK)
+    ap.add_argument("--out-dir", default=GENOME_OUT,
+                    help="where each step's JSON line is also appended "
+                         "(steps.jsonl) beside the runs' artifacts")
+    args = ap.parse_args(argv)
+    given = [opt for opt in ("chroms", "mb", "jobs", "reason")
+             if getattr(args, opt) is not None]
+    if not args.genome and (given or args.steps != ap.get_default("steps")):
+        ap.error("--chroms, --mb, --jobs, --reason and --steps go with "
+                 "--genome")
+    steps = args.steps.split(",")
+    unknown = sorted(set(steps) - set(GENOME_STEPS))
+    if unknown:
+        ap.error(f"unknown steps {unknown}; choose from {GENOME_STEPS}")
+    args.steps = tuple(s for s in GENOME_STEPS if s in steps)
+    args.chroms = GENOME["chroms"] if args.chroms is None else args.chroms
+    args.mb = GENOME["mb"] if args.mb is None else args.mb
+    args.jobs = GENOME_JOBS if args.jobs is None else args.jobs
+    return args
+
+
+def genome_reduced(args) -> dict | None:
+    """What the run cuts from the full workload, with its reason; None
+    at full size."""
+    cut = {key: [full, got] for key, full, got in (
+        ("chroms", GENOME["chroms"], args.chroms),
+        ("mb", GENOME["mb"], args.mb), ("jobs", GENOME_JOBS, args.jobs))
+        if got != full}
+    if not cut:
+        return None
+    cut["reason"] = args.reason or "not given"
+    return cut
+
+
+def _emit(args, record: dict) -> dict:
+    """Print one step's JSON line at once and append it to
+    ``out_dir``/steps.jsonl, so a cut run keeps what it measured."""
+    line = json.dumps(record)
+    print(line, flush=True)
+    os.makedirs(args.out_dir, exist_ok=True)
+    with open(os.path.join(args.out_dir, "steps.jsonl"), "a") as f:
+        f.write(line + "\n")
+    return record
+
+
+def host_check(work_dir: str) -> dict:
+    """The host's cores, memory (``free -g``) and the free disk under
+    the run directory."""
+    os.makedirs(work_dir, exist_ok=True)
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True)
+    disk = shutil.disk_usage(work_dir)
+    return {"nproc": os.cpu_count(), "free_g": free.stdout.strip(),
+            "disk_free_gb": round(disk.free / 1e9, 1),
+            "disk_total_gb": round(disk.total / 1e9, 1)}
+
+
+# the generator in a child under the sampler of bench_wgs_at_scale: the
+# peak memory of its process tree (the merge's threads included)
+_GEN_MEASURED = """
+import json
+
+from manta_tpu_torch.tools import wgs_workload
+from manta_tpu_torch.tools.bench_wgs_at_scale import RssSampler
+
+with RssSampler(interval=2.0) as rss:
+    wgs_workload.main(sys.argv[1:])
+print(json.dumps({
+    "peak_pss_anon_gb": round(rss.peak_pss_anon / 1e9, 2),
+    "peak_anon_gb": round(rss.peak_anon / 1e9, 2),
+    "peak_tree_rss_gb": round(rss.peak_total / 1e9, 2),
+    "memory_sources": rss.sources}))
+"""
+
+
+def gen_log_figures(log: str) -> dict:
+    """Walls and read count from the generator's log: the simulation
+    up to the external merge (or the in-memory sort), the merge, and
+    the reads written."""
+    stamps = [(float(t), msg) for t, msg in
+              re.findall(r"^\[\s*([0-9.]+)s\] (.*)$", log, re.M)]
+    at = {key: next((t for t, msg in stamps if msg.startswith(key)), None)
+          for key in ("merging", "encoding + sorting", "wrote")}
+    reads = re.findall(r"wrote .* \((\d+) reads", log)
+    sim_end = at["merging"] or at["encoding + sorting"]
+    return {"reads": int(reads[-1]) if reads else None,
+            "simulation_s": sim_end,
+            "merge_s": (at["wrote"] - at["merging"]
+                        if at["merging"] is not None and at["wrote"]
+                        else None),
+            "generation_s": at["wrote"]}
+
+
+def _gen_args(args, prefix: str) -> list:
+    return ["--out", prefix, "--chroms", str(args.chroms), "--mb",
+            str(args.mb), "--depth", str(GENOME["depth"]), "--seed",
+            str(GENOME["seed"])]
+
+
+# disk the generation takes a read at its peak: the external merge's
+# level-1 BGZF runs (io/bamwriter.spill_run) and their sidecar columns
+# beside the reference and the BAM it writes. Measured by DiskUse on an
+# H100's host: 34.756 GB at 419,508,317 reads (12 x 100 Mb at 35x)
+GEN_DISK_BYTES_PER_READ = 83
+# the one directory under --work-dir that the phase owns: it empties
+# this directory, and nothing else, before it generates
+GENOME_RUN = "genome_run"
+
+
+def expected_reads(args) -> int:
+    """The generator's nominal read count (tools/wgs_workload.py)."""
+    return GENOME["depth"] * args.chroms * args.mb * 1_000_000 // READ_LEN_WGS
+
+
+def genome_prefix(args) -> str:
+    """The workload's path prefix, in the phase's own directory."""
+    return os.path.join(args.work_dir, GENOME_RUN, "g")
+
+
+class DiskUse:
+    """The disk a directory's files take (their allocated blocks),
+    sampled every ``interval`` seconds in a thread while it runs:
+    ``step()`` gives the most it held since the last ``step()`` and
+    what it holds now, in GB."""
+
+    def __init__(self, path: str, interval: float = 2.0):
+        import threading
+        self.path, self.interval = path, interval
+        self.peak = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def held(self) -> int:
+        total = 0
+        for root, _dirs, files in os.walk(self.path):
+            for name in files:
+                try:
+                    total += os.lstat(os.path.join(root, name)).st_blocks
+                except FileNotFoundError:      # removed while walked
+                    pass
+        return total * 512
+
+    def _sample(self) -> int:
+        now = self.held()
+        with self._lock:
+            self.peak = max(self.peak, now)
+        return now
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            self._sample()
+
+    def start(self) -> "DiskUse":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+    def step(self) -> dict:
+        now = self._sample()
+        with self._lock:
+            peak, self.peak = self.peak, now
+        return {"peak_gb": round(peak / 1e9, 3), "now_gb": round(now / 1e9, 3)}
+
+
+def start_genome_generation(args) -> subprocess.Popen:
+    """Step a, started: the workload from the seed, the port's generator
+    in a child (one core) under the memory sampler, into the phase's
+    own directory, emptied first. Fails first when the disk under the
+    run directory cannot hold the generation at its peak."""
+    prefix = genome_prefix(args)
+    own = os.path.dirname(prefix)
+    need = expected_reads(args) * GEN_DISK_BYTES_PER_READ
+    os.makedirs(args.work_dir, exist_ok=True)
+    free = shutil.disk_usage(args.work_dir).free
+    if os.path.isdir(own):
+        free += DiskUse(own).held()
+    if need > free:
+        raise RuntimeError(f"the generation needs ~{need / 1e9:.0f} GB of "
+                           f"disk, {free / 1e9:.0f} GB are free under "
+                           f"{args.work_dir}: cut --chroms ({GENOME_CUTS})")
+    shutil.rmtree(own, ignore_errors=True)
+    os.makedirs(own)
+    return start_child(["-c", _GEN_MEASURED, *_gen_args(args, prefix)],
+                       prefix + ".gen.log")
+
+
+def genome_generate(args, proc: subprocess.Popen) -> dict:
+    """Step a, ended: the generator's (``proc``, from
+    ``start_genome_generation``) walls, peak memory, BAM size and read
+    count, which at full size must be the JAX package's 838,874,597."""
+    prefix = genome_prefix(args)
+    out = wait_child(proc, "the generator")
+    wall = time.perf_counter() - proc.started
+    rec = {"step": "gen", "argv": "python -m manta_tpu_torch.tools."
+           "wgs_workload " + " ".join(_gen_args(args, prefix)),
+           "wall_s": round(wall, 2), **gen_log_figures(out),
+           "memory": _last_json(out),
+           "bam_gb": round(os.path.getsize(prefix + ".bam") / 1e9, 3),
+           "disk_need_gb": round(expected_reads(args)
+                                 * GEN_DISK_BYTES_PER_READ / 1e9, 1)}
+    if genome_reduced(args) is None and rec["reads"] != GENOME_READS:
+        raise AssertionError(f"{rec['reads']} reads generated, the JAX "
+                             f"package's run had {GENOME_READS}")
+    return rec
+
+
+def _body_digest(run_dir: str) -> str:
+    import hashlib
+    body = "".join(_records(os.path.join(run_dir, "results", "variants",
+                                         "diploidSV.vcf.gz")))
+    return hashlib.sha256(body.encode()).hexdigest()
+
+
+def genome_run(args, prefix: str, mode: str, device: str = "cuda") -> dict:
+    """Step b: one unarmed run through python -m manta_tpu_torch.tools.
+    bench_wgs_at_scale at -j 8 in a child: its artifact (wall, phases,
+    CPU seconds, the process tree's peak memory and its sources, the
+    parent and the workers apart, edges, the device work of every
+    process from the exit lines, the resolved mode), the phase walls
+    and the body's digest. Every contig dispatch went through K1 and
+    every split scan through K3; auto resolves to jump on a card."""
+    run_dir = f"{prefix}.run_{mode}"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    proc = start_child(
+        ["-m", "manta_tpu_torch.tools.bench_wgs_at_scale", "--workload",
+         prefix, "--jobs", str(args.jobs), "--device-scoring", mode,
+         "--run-dir", run_dir, "--keep", "--results-dir", args.out_dir,
+         "--tag", f"genome_{mode}", "--device", device],
+        run_dir + ".log")
+    art = _last_json(wait_child(proc, f"the {mode} run"))
+    resolved = art["device_scoring_resolved"]
+    want = ("jump" if device == "cuda" else "off") if mode == "auto" \
+        else mode
+    if resolved != want:
+        raise AssertionError(f"{mode} resolved to {resolved}, not {want}")
+    if device == "cpu":
+        if art["k1_launches"] or art["k3_launches"]:
+            raise AssertionError(f"{mode}: a kernel launched on the cpu")
+    else:
+        _check_work(f"genome {mode}", resolved, art)
+    if resolved == "jump" and device == "cuda" and not art["k1_launches"]:
+        raise AssertionError(f"{mode}: no K1 launch")
+    return {"step": mode, **art, "phases": _phase_walls(run_dir),
+            "body_sha256": _body_digest(run_dir)}
+
+
+def compare_truth(line: dict, want: dict) -> list:
+    """The fields of a truth check's line that differ from ``want``'s,
+    ``by_type`` type by type: [(field, got, wanted)]."""
+    out = []
+    for key, value in want.items():
+        if key == "by_type":
+            got = line.get(key, {})
+            for typ in sorted(set(value) | set(got)):
+                if got.get(typ) != value.get(typ):
+                    out.append((f"by_type.{typ}", got.get(typ),
+                                value.get(typ)))
+        elif line.get(key) != value:
+            out.append((key, line.get(key), value))
+    return out
+
+
+def genome_check(args, prefix: str, runs: dict) -> dict:
+    """Step c: the truth checker resumed on every unarmed run at once
+    (germline); their lines equal but for wall, memory and directory,
+    their diploid bodies byte-identical; at full size the off run's line
+    equal to the JAX package's (R05_TRUTH), every differing field
+    printed before it fails. A cut run is compared with the JAX
+    package's host path at a small size by tests/test_torch_genome_scale
+    .py instead."""
+    dirs = {mode: rec["run_dir"] for mode, rec in runs.items()}
+    lines = _truth_checks(prefix, dirs, "--mode", "germline", "--jobs",
+                          str(args.jobs))
+    bodies = {mode: _records(os.path.join(d, "results", "variants",
+                                          "diploidSV.vcf.gz"))
+              for mode, d in dirs.items()}
+    first = next(iter(bodies))
+    differ = [m for m, b in bodies.items() if b != bodies[first]]
+    if differ:
+        raise AssertionError(f"diploid bodies of {differ} differ from "
+                             f"{first}'s")
+    line = _same_checks("genome", lines)
+    rec = {"step": "check", "modes": list(lines), "line": line,
+           "records": len(bodies[first]),
+           "body_sha256": _body_digest(dirs[first]),
+           "check_wall_s": {m: ln["wall_s"] for m, ln in lines.items()}}
+    if genome_reduced(args) is not None or "off" not in lines:
+        rec["r05"] = ("not compared: " + ("the run is cut, "
+                      f"{genome_reduced(args)}" if genome_reduced(args)
+                      else "no off run in this call"))
+        return rec
+    diffs = compare_truth(lines["off"], R05_TRUTH)
+    rec["r05"] = "equal" if not diffs else [list(d) for d in diffs]
+    if diffs:
+        _emit(args, rec)
+        raise AssertionError(f"off's truth line differs from the JAX "
+                             f"package's round-5 line: {diffs}")
+    return rec
+
+
+def genome_armed(args, prefix: str, mode: str, device: str = "cuda",
+                 body: str | None = None) -> dict:
+    """Step d: the same workload through the timing tool's workflow mode
+    at -j 8 (python -m manta_tpu_torch.tools.device_timing --kernel
+    workflow --workload wgs --jobs 8), each phase-2 worker tracing
+    itself: per kernel its launches in the traces, by the wrappers, on
+    the exit lines and the seams' calls, all equal; device ms, shapes,
+    work, bound and share, copies; phase 2's busy union and share, the
+    workers' CUDA start-ups, no event outside phase 2, no overlap. The
+    tool exits 1 when they disagree: its records are kept and printed
+    first. ``body``: the unarmed runs' digest, which this run's must
+    equal."""
+    run_dir = f"{prefix}.armed_{mode}"
+    json_path = os.path.join(args.out_dir, f"armed_{mode}.jsonl")
+    os.makedirs(args.out_dir, exist_ok=True)
+    if os.path.exists(json_path):
+        os.remove(json_path)
+    t0 = time.perf_counter()
+    proc = start_child(
+        ["-m", "manta_tpu_torch.tools.device_timing", "--kernel",
+         "workflow", "--workload", "wgs", "--prefix", prefix, "--mode",
+         mode, "--jobs", str(args.jobs), "--run-dir", run_dir, "--json",
+         json_path, "--device", device], run_dir + ".log")
+    rc = proc.wait()
+    wall = time.perf_counter() - t0
+    with open(proc.log) as f:
+        records = _tool_records(f.read())
+    kernels, phase2 = records[:-1], records[-1] if records else {}
+    rec = {"step": f"armed_{mode}", "wall_s": round(wall, 2), "rc": rc,
+           "kernels": {r["kernel"]: {k: r[k] for k in (
+               "calls", "launches_wrapper", "launches_profiler",
+               "launches_exit_lines", "device_ms", "device_ms_per_launch",
+               "path_wall_s", "useful_work", "padded_work", "bytes",
+               "bound_ms", "bound_by", "bound_ms_int32", "share_of_bound",
+               "share_of_bound_int32", "h2d", "d2h", "shapes") if k in r}
+               for r in kernels},
+           "phase2": {k: phase2.get(k) for k in (
+               "phase2_wall_s", "device_busy_ms", "busy_share", "workers",
+               "workers_launched", "cuda_startup_s", "clocks",
+               "events_outside_phase2", "overlapping_kernels",
+               "worker_marks_s")}}
+    if rc != 0:
+        with open(proc.log + ".err") as f:
+            rec["error"] = f.read()[-3000:]
+        _emit(args, rec)
+        raise RuntimeError(f"device_timing --kernel workflow ({mode}) "
+                           f"failed ({rc}): {rec['error'][-1500:]}")
+    for name, k in rec["kernels"].items():
+        counted = {k["calls"], k["launches_wrapper"],
+                   k["launches_exit_lines"]}
+        if device == "cuda":
+            counted.add(k["launches_profiler"])
+        elif k["launches_wrapper"]:
+            raise AssertionError(f"{name} launched on the cpu")
+        if device == "cuda" and len(counted) > 1:
+            raise AssertionError(f"armed {mode}: {name}'s launches "
+                                 f"disagree: {k}")
+    if device == "cuda" and (phase2["events_outside_phase2"]
+                             or phase2["overlapping_kernels"]):
+        raise AssertionError(f"armed {mode}: {rec['phase2']}")
+    rec["body_sha256"] = _body_digest(run_dir)
+    if body is not None and rec["body_sha256"] != body:
+        raise AssertionError(f"armed {mode}: the body differs from the "
+                             "unarmed runs'")
+    return rec
+
+
+def _bucket_jobs(rng, B: int, nq: int, nr1: int, nr2: int) -> list:
+    """Seeded jump jobs that the dispatcher pads to bucket (B, nq, nr1,
+    nr2): B - 2 jobs (two pad rows, as the dispatcher adds them), the
+    first as long as the bucket."""
+    jobs = [(q, r1[:nr1], r2[:nr2])
+            for q, r1, r2 in _jobs(rng, max(1, B - 2), nq, max(nr1, nr2))]
+    q, r1, r2 = jobs[0]
+    jobs[0] = (q.ljust(nq, b"A")[:nq], r1.ljust(nr1, b"C")[:nr1],
+               r2.ljust(nr2, b"G")[:nr2])
+    return jobs
+
+
+def _tier_inputs(rng, n: int, t: int, Lp: int, Tp: int):
+    """A seeded exact scan at tier (Lp, Tp): ``n`` reads (100 bases at
+    Lp 256, as the workload's reads, else up to Lp) taken from the first
+    target with one substitution in ten, random quals, and ``t``
+    targets, the first as long as the tier allows. Returns (batch,
+    read_idx, targets, bp_ranges) as the router receives them."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    lengths = [Tp - 8] + [int(rng.integers(Tp // 2 + 8, Tp - 7))
+                          for _ in range(t - 1)]
+    targets = [bases[rng.integers(0, 4, L)] for L in lengths]
+    bp_ranges = [(L // 2 - 2, L // 2 + 2) for L in lengths]
+    lo = READ_LEN_WGS if Lp == 256 else Lp // 2 + 1
+    read_lens = [lo if Lp == 256 else int(rng.integers(lo, Lp + 1))
+                 for _ in range(n)]
+    seqs, quals = [], []
+    for L in read_lens:
+        at = int(rng.integers(0, max(1, lengths[0] - L)))
+        s = targets[0][at:at + L].copy()
+        flip = rng.random(L) < 0.1
+        s[flip] = bases[rng.integers(0, 4, int(flip.sum()))]
+        seqs.append(s)
+        quals.append(rng.integers(2, 41, L).astype(np.uint8))
+    off = np.zeros(n + 1, np.int64)
+    off[1:] = np.cumsum([len(s) for s in seqs])
+    batch = SimpleNamespace(seq=np.concatenate(seqs),
+                            qual=np.concatenate(quals), seq_off=off,
+                            qual_off=off.copy(), n=n)
+    return batch, np.arange(n, dtype=np.int64), targets, bp_ranges
+
+
+def _smoke_shapes():
+    """The K1 buckets and K3 tiers the default smoke's kernel checks
+    launch at (phases 3 and 4)."""
+    from manta_tpu_torch.align import device_jumpscore as dj
+    from manta_tpu_torch.scoring import device_scan
+    k1 = {(B, dj._bucket(nq), dj._bucket(nr), dj._bucket(nr))
+          for B, nq, nr in KERNEL_SHAPES} | {MAIN_PATH_BUCKET}
+    k3 = {(Lp, device_scan._bucket(Tp)) for _B, Lp, Tp in SPLIT_SHAPES}
+    return k1, k3
+
+
+def genome_shapes(armed: dict) -> dict:
+    """Step e (the card only): every K1 bucket and K3 tier the armed
+    runs launched at, one launch each on seeded inputs of that shape
+    held against the plain PyTorch form on the card (bit-equal int32
+    scores; bit-equal best lnlhood and position), with its profiler
+    device time, the plain form's time and the bound. Shapes the
+    default smoke's checks never launch are marked new."""
+    phase("genome: the kernels at the shapes the whole genome launched")
+    import numpy as np
+    import torch
+    from manta_tpu_torch.align import cuda_jumpscore, cuda_splitscore
+    from manta_tpu_torch.align import device_jumpscore as dj
+    from manta_tpu_torch.align import device_splitscore as ds
+    from manta_tpu_torch.candidates.refiner import RefinerOptions
+    from manta_tpu_torch.scoring import device_scan
+    from manta_tpu_torch.scoring.evidence import QscoreSnp
+
+    smoke_k1, smoke_k3 = _smoke_shapes()
+    buckets, tiers = {}, {}
+    for rec in armed.values():
+        for key, calls in rec["kernels"]["jump_score"]["shapes"].items():
+            buckets[key] = buckets.get(key, 0) + calls
+        for key, tier in rec["kernels"]["split_score"]["shapes"].items():
+            seen = tiers.setdefault(key, {"calls": 0, "reads": 0,
+                                          "targets": 0})
+            seen["calls"] += tier["calls"]
+            seen["reads"] = max(seen["reads"], tier["reads"])
+            seen["targets"] = max(seen["targets"], tier["targets"])
+    rng = np.random.default_rng(20261017)
+    opt = RefinerOptions()
+    scores, jump = opt.spanning_scores, opt.jump_score
+    jargs = (scores.match, scores.mismatch, scores.open, scores.extend,
+             scores.off_edge, jump)
+    out = {"step": "shapes", "jump_score": [], "split_score": []}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    for key in sorted(buckets, key=lambda k: tuple(map(int, k.split(",")))):
+        B, nq, nr1, nr2 = map(int, key.split(","))
+        arrays = dj.pad_jobs(_bucket_jobs(rng, B, nq, nr1, nr2), B)
+        shape = (arrays[0].shape[0], arrays[0].shape[1],
+                 arrays[2].shape[1], arrays[4].shape[1])
+        if shape != (B, nq, nr1, nr2):
+            raise AssertionError(f"K1 inputs padded to {shape}, not {key}")
+        t = dj.from_reference_inputs(*arrays, "cuda")
+        kern = cuda_jumpscore.jump_score_cuda(*t, *jargs)
+        plain, plain_ms = timed(lambda: dj.batched_jump_score(
+            *t, *jargs, nq, nr1, nr2))
+        kern, plain = kern.cpu().numpy(), plain.cpu().numpy()
+        if not np.array_equal(kern, plain):
+            bad = np.flatnonzero(kern != plain)[:8]
+            raise AssertionError(f"K1 != plain at {key}: rows "
+                                 f"{bad.tolist()}")
+        ms = _device_ms(lambda: cuda_jumpscore.jump_score_cuda(*t, *jargs),
+                        "jump_systolic_kernel", runs=20)
+        bound = _jump_bound(arrays, JUMP_OPS_PER_CELL, 1)
+        row = {"bucket": key, "calls": buckets[key],
+               "new": shape not in smoke_k1, "equal": "bit-equal int32",
+               "device_ms": ms, "plain_ms": plain_ms, **bound}
+        print(f"K1 {key}: {json.dumps(row)}", flush=True)
+        out["jump_score"].append(row)
+    qconv = QscoreSnp(1e-3)
+    m, x = qconv.lut256()
+    luts = [torch.from_numpy(np.ascontiguousarray(a[:71])).cuda()
+            for a in (m, x)]
+    staging = device_scan.ExactStaging(torch.device("cuda"))
+    for key in sorted(tiers, key=lambda k: tuple(map(int, k.split(",")))):
+        Lp, Tp = map(int, key.split(","))
+        n, nt = tiers[key]["reads"], tiers[key]["targets"]
+        batch, idx, targets, ranges = _tier_inputs(rng, n, nt, Lp, Tp)
+        if device_scan.read_tier(batch, idx) != Lp or \
+                device_scan._bucket(max(map(len, targets)) + 1) != Tp:
+            raise AssertionError(f"K3 inputs off their tier {key}")
+        staged = staging.stage(batch, idx, targets, ranges, Tp)
+        fargs = (*staged, FLANK, *luts, Tp)
+        kb, kp = cuda_splitscore.split_score_factored_cuda(*fargs)
+        # the plain form in chunks of reads: it holds a (reads, targets,
+        # Tp, Lp) plane
+        chunk = max(1, min(n, int(4e9 // (nt * Tp * Lp * 4))))
+
+        def plain():
+            parts = [ds.batched_split_score_factored(
+                staged[0][a:a + chunk], staged[1][a:a + chunk],
+                staged[2][a:a + chunk], *staged[3:], FLANK, *luts, Tp)
+                for a in range(0, n, chunk)]
+            return (torch.cat([p[0] for p in parts]),
+                    torch.cat([p[1] for p in parts]))
+        (pb, pp), plain_ms = timed(plain)
+        if not (torch.equal(kb, pb) and torch.equal(kp, pp)):
+            raise AssertionError(f"K3 != plain at tier {key} ({n} reads x "
+                                 f"{nt} targets)")
+        ms = _device_ms(
+            lambda: cuda_splitscore.split_score_factored_cuda(*fargs),
+            "split_score_kernel", runs=20)
+        rl = np.diff(batch.seq_off)
+        terms = device_scan.useful_terms(
+            rl[:, None], np.array([b for b, _e in ranges]),
+            np.array([e for _b, e in ranges]), [len(tg) for tg in targets])
+        n_bytes = (2 * n * Lp + nt * Tp + 4 * (n + 3 * nt) + 2 * 71 * 4
+                   + 8 * n * nt)
+        bound = _bound(n_bytes, SPLIT_OPS_PER_TERM * terms)
+        row = {"tier": key, "reads": n, "targets": nt,
+               "calls": tiers[key]["calls"], "new": (Lp, Tp) not in smoke_k3,
+               "equal": "bit-equal best and position", "device_ms": ms,
+               "plain_ms": plain_ms, "useful_terms": terms, **bound}
+        print(f"K3 {key}: {json.dumps(row)}", flush=True)
+        out["split_score"].append(row)
+    return out
+
+
+def genome(args, device: str = "cuda") -> dict:
+    """The whole-genome phase, step by step (``args.steps``), each
+    step's JSON line printed as it ends, with the disk the phase's
+    directory took at most during the step and holds at its end; the
+    card's lines and the last line as the default smoke ends."""
+    card = environment() if device == "cuda" else "cpu"
+    phase("genome")
+    prefix = genome_prefix(args)
+    plan = {"step": "plan", "workload": {**GENOME, "chroms": args.chroms,
+                                         "mb": args.mb},
+            "expected_reads": expected_reads(args),
+            "jobs": args.jobs, "steps": list(args.steps),
+            "reduced": genome_reduced(args), "device": card,
+            "host": host_check(args.work_dir)}
+    done = {"plan": _emit(args, plan)}
+    gen = (start_genome_generation(args) if "gen" in args.steps
+           else None)
+    disk = DiskUse(os.path.dirname(prefix)).start()
+
+    def emit(rec: dict) -> dict:
+        return _emit(args, {**rec, "disk": disk.step()})
+
+    try:
+        if device == "cuda" and set(args.steps) - {"gen", "off", "check"}:
+            # beside the generator, which takes one core: the runs'
+            # walls then hold no kernel build
+            build(("jump_score", "split_score"))
+        if gen is not None:
+            done["gen"] = emit(genome_generate(args, gen))
+        runs = {}
+        for mode in ("off", "jump", "exact", "auto"):
+            if mode in args.steps:
+                runs[mode] = done[mode] = emit(
+                    genome_run(args, prefix, mode, device))
+        if "check" in args.steps and runs:
+            done["check"] = emit(genome_check(args, prefix, runs))
+        body = next(iter(runs.values()))["body_sha256"] if runs else None
+        armed = {}
+        if "armed" in args.steps:
+            for mode in GENOME_ARMED:
+                armed[mode] = done[f"armed_{mode}"] = emit(
+                    genome_armed(args, prefix, mode, device, body))
+        if "shapes" in args.steps and armed and device == "cuda":
+            done["shapes"] = emit(genome_shapes(armed))
+    finally:
+        disk.stop()
+    return done
+
+
+def genome_main(args) -> None:
+    """``--genome``: the phase, then the line of what it measured, the
+    card's line and the last line."""
+    done = genome(args)
+    import torch
+    _no_foreign()
+    print(json.dumps({"genome": {step: rec for step, rec in done.items()
+                                 if step in ("plan", "check")},
+                      "steps": list(done),
+                      "total_s": round(time.perf_counter() - T_START, 1)}))
+    print(done["plan"]["device"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _no_foreign() -> None:
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "manta_tpu"))
+    if foreign:
+        raise AssertionError(f"JAX or the JAX package was imported: "
+                             f"{foreign[:8]}")
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "manta_tpu_torch")):
         sys.exit("chip_smoke.py: run it from the root of a checkout "
                  "(manta_tpu_torch/ not found beside it)")
     sys.path.insert(0, REPO)
     try:
-        smoke()
+        genome_main(args) if args.genome else smoke()
     finally:
         for proc in BACKGROUND:
             if proc.poll() is None:
@@ -2666,11 +3377,7 @@ def smoke() -> None:
         on_paths[name].update(paths)
     launches["jump_score_bounded"] = device_timing()["jump_score_bounded"]
     dry_launches = dry_run()
-    foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "manta_tpu"))
-    if foreign:
-        raise AssertionError(f"JAX or the JAX package was imported: "
-                             f"{foreign[:8]}")
+    _no_foreign()
     import torch
     print(f"\nno jax, jaxlib or manta_tpu module imported in this process "
           f"and in its {len(CHILDREN)} child processes (each behind the "

@@ -45,6 +45,9 @@ _ACGTN_PAD = frozenset((65, 67, 71, 84, 78, 0xFF))  # A C G T N pad
 # time; reported once per process at exit as a "[manta-tpu-torch]
 # split-scan ..." stderr line
 SCAN_STATS = {"exact": 0, "mxu": 0, "fallback": 0, "rows": 0, "wall": 0.0}
+# exact scans by (read tier Lp, scan tier Tp): [calls, most reads, most
+# targets in one call], the shapes the kernel was launched at
+SCAN_TIERS: dict[tuple[int, int], list[int]] = {}
 # copies the exact route asked for on a CUDA device: one each way a call
 EXACT_COPIES = {"h2d": 0, "d2h": 0}
 _REPORT_REGISTERED = False
@@ -74,7 +77,8 @@ def _register_scan_report():
                   f"{s['wall']:.2f}s total, "
                   f"{KERNEL_LAUNCHES['split_score']} kernel launches; "
                   f"work: {work['useful']} useful terms, "
-                  f"{work['padded']} padded terms, {work['bytes']} bytes",
+                  f"{work['padded']} padded terms, {work['bytes']} bytes; "
+                  f"tiers (Lp, Tp): {dict(sorted(SCAN_TIERS.items()))}",
                   file=sys.stderr, flush=True)
     at_process_exit(report)
 
@@ -279,9 +283,13 @@ class DeviceScanContext:
         SCAN_STATS["rows"] += len(read_idx) * len(targets)
         SCAN_STATS["wall"] += time.perf_counter() - t0
         if exact:
+            Lp = read_tier(batch, read_idx)
             count_work(batch.seq_off[read_idx + 1] - batch.seq_off[read_idx],
-                       bp_ranges, [len(tg) for tg in targets],
-                       read_tier(batch, read_idx), Tp)
+                       bp_ranges, [len(tg) for tg in targets], Lp, Tp)
+            tier = SCAN_TIERS.setdefault((Lp, Tp), [0, 0, 0])
+            tier[0] += 1
+            tier[1] = max(tier[1], len(read_idx))
+            tier[2] = max(tier[2], len(targets))
         return out
 
     @staticmethod

@@ -4,7 +4,7 @@ the workflow's log, sample the process tree's memory, and write the
 measured-run artifact that ``tools.bench`` reads.
 
     python -m manta_tpu_torch.tools.bench_wgs_at_scale --workload P \\
-        [--jobs N] [--device-scoring off|jump|exact|mxu] \\
+        [--jobs N] [--device-scoring off|auto|jump|exact|mxu] \\
         [--device cuda|cpu] [--results-dir D] [--tag T] [--keep]
 
 Twin of benchmarks/bench_wgs_at_scale.py: the same sampler, phase
@@ -78,6 +78,11 @@ class RssSampler:
         # anonymous footprint — the number comparable to the
         # reference's reported peak
         self.peak_pss_anon = 0
+        # the same sums split between this process (the workflow's
+        # parent) and the rest of the tree (its workers), each its own
+        # peak over the samples
+        self.peak_parent = {"anon": 0, "pss_anon": 0}
+        self.peak_workers = {"anon": 0, "pss_anon": 0}
         # where each figure was read: "smaps_rollup" or "smaps" for
         # Pss_Anon, "status" or "smaps" for RssAnon; a figure no source
         # gave stays out of ``peaks()``
@@ -142,8 +147,10 @@ class RssSampler:
         return int(pss_anon or pss_share), int(anon)
 
     def _run(self):
+        me = os.getpid()
         while not self._stop.is_set():
             anon = filp = tot = pss = nproc = 0
+            parent = {"anon": 0, "pss_anon": 0}
             for pid in self._tree():
                 p_pss = p_anon = p_file = p_tot = None
                 try:
@@ -184,6 +191,8 @@ class RssSampler:
                                 p_file = max(0, p_tot - p_anon)
                 pss += p_pss or 0
                 anon += p_anon or 0
+                if pid == me:
+                    parent = {"anon": p_anon or 0, "pss_anon": p_pss or 0}
                 filp += p_file or 0
                 tot += p_tot or 0
                 if p_anon and p_anon > self.peak_proc_anon:
@@ -204,6 +213,11 @@ class RssSampler:
             self.peak_file = max(self.peak_file, filp)
             self.peak_total = max(self.peak_total, tot)
             self.peak_pss_anon = max(self.peak_pss_anon, pss)
+            for key, total in (("anon", anon), ("pss_anon", pss)):
+                self.peak_parent[key] = max(self.peak_parent[key],
+                                            parent[key])
+                self.peak_workers[key] = max(self.peak_workers[key],
+                                             total - parent[key])
             self.trace.append((round(time.perf_counter() - self._t0, 1),
                                anon, pss, nproc))
             self._stop.wait(self.interval)
@@ -287,7 +301,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--jobs", type=int, default=0, help="0 = all cores")
     ap.add_argument("--device-scoring", default="off",
-                    choices=("off", "jump", "exact", "mxu"))
+                    choices=("off", "auto", "jump", "exact", "mxu"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--reads-m", type=float, default=None,
                     help="read count in millions (from the generator "
@@ -359,6 +373,14 @@ def main(argv=None) -> dict:
         "peak_proc_at_s": round(rss.peak_proc_at_s, 1),
         "peak_proc_role": rss.peak_proc_role,
         "memory_sources": rss.sources,
+        # this process (the workflow's parent) and the rest of its tree
+        # (the workers), each at its own peak; null as above
+        **{f"peak_{who}_{key}_gb": (round(peak[key] / 1e9, 2)
+                                    if source in rss.sources else None)
+           for who, peak in (("parent", rss.peak_parent),
+                             ("workers", rss.peak_workers))
+           for key, source in (("pss_anon", "pss_anon"),
+                               ("anon", "rss_anon"))},
         "edges": edges,
         "phase2_s": round(phase2_s, 1) if phase2_s else None,
         "edges_per_s": (round(edges / phase2_s, 2)

@@ -11,6 +11,7 @@ whose own exit line comes only when the process ends)."""
 
 from __future__ import annotations
 
+import ast
 import os
 import re
 import sys
@@ -27,6 +28,12 @@ SCAN_LINE = re.compile(
     r"split-scan pid=\d+: (\d+) calls .*?, ([0-9.]+)s total, (\d+) kernel "
     r"launches(?:; work: (\d+) useful terms, (\d+) padded terms, (\d+) "
     r"bytes)?")
+# the shapes each line ends with: the dispatcher's calls by padded bucket
+# (B, nq, nr1, nr2), the router's exact scans by tier (Lp, Tp) with the
+# most reads and targets of a call
+BUCKETS = re.compile(r"device-dispatch pid=\d+: .*calls by bucket "
+                     r"\(B, nq, nr1, nr2\): (\{[^}]*\})")
+TIERS = re.compile(r"split-scan pid=\d+: .*tiers \(Lp, Tp\): (\{[^}]*\})")
 WORK_KEYS = {"k1": ("k1_useful_cells", "k1_padded_cells", "k1_bytes"),
              "k3": ("k3_useful_terms", "k3_padded_terms", "k3_bytes")}
 
@@ -53,6 +60,41 @@ def parse_lines(text: str) -> dict:
         for key, n in zip(WORK_KEYS["k3"], work):
             out[key] += int(n or 0)
     return out
+
+
+def _add_shapes(out: dict, buckets: dict, tiers: dict) -> None:
+    """Add a process's K1 buckets and K3 tiers to ``out``
+    (``parse_shapes``' form)."""
+    for shape, calls in buckets.items():
+        key = ",".join(map(str, shape))
+        out["jump_score"][key] = out["jump_score"].get(key, 0) + calls
+    for (lp, tp), (calls, reads, targets) in tiers.items():
+        tier = out["split_score"].setdefault(
+            f"{lp},{tp}", {"calls": 0, "reads": 0, "targets": 0})
+        tier["calls"] += calls
+        tier["reads"] = max(tier["reads"], reads)
+        tier["targets"] = max(tier["targets"], targets)
+
+
+def parse_shapes(text: str) -> dict:
+    """The shapes the exit lines in ``text`` launched at: {"jump_score":
+    {"B,nq,nr1,nr2": calls}, "split_score": {"Lp,Tp": {"calls", "reads",
+    "targets"}}} (the most reads and targets of one call)."""
+    out = {"jump_score": {}, "split_score": {}}
+    for buckets in BUCKETS.findall(text):
+        _add_shapes(out, ast.literal_eval(buckets), {})
+    for tiers in TIERS.findall(text):
+        _add_shapes(out, {}, ast.literal_eval(tiers))
+    return out
+
+
+def _own_shapes() -> tuple[dict, dict]:
+    """This process's buckets and tiers so far (copies)."""
+    dj = sys.modules.get("manta_tpu_torch.align.device_jumpscore")
+    ds = sys.modules.get("manta_tpu_torch.scoring.device_scan")
+    return (dict(dj.DISPATCH_BUCKETS) if dj is not None else {},
+            {k: list(v) for k, v in ds.SCAN_TIERS.items()}
+            if ds is not None else {})
 
 
 def _own_counts() -> dict:
@@ -94,6 +136,7 @@ class WorkflowCounts:
 
     def __enter__(self):
         self._before = _own_counts()
+        self._shapes_before = _own_shapes()
         sys.stderr.flush()
         r, w = os.pipe()
         self._saved = os.dup(2)
@@ -121,6 +164,7 @@ class WorkflowCounts:
 
     def __exit__(self, *exc):
         self._after = _own_counts()
+        self._shapes_after = _own_shapes()
         sys.stderr.flush()
         # closes the pipe's last write end but those of processes still
         # alive; the pump ends when they are gone
@@ -138,4 +182,16 @@ class WorkflowCounts:
                                         or own["split_scans"])
         out["dispatch_wall_s"] = round(out["dispatch_wall_s"], 4)
         out["split_scan_wall_s"] = round(out["split_scan_wall_s"], 4)
+        return out
+
+    def shapes(self) -> dict:
+        """``parse_shapes`` of the run: its workers' exit lines and what
+        this process launched itself (a tier's most reads and targets as
+        this process last saw them)."""
+        out = parse_shapes("\n".join(self._lines))
+        (b0, t0), (b1, t1) = self._shapes_before, self._shapes_after
+        _add_shapes(out, {k: n - b0.get(k, 0) for k, n in b1.items()
+                          if n > b0.get(k, 0)},
+                    {k: [v[0] - t0.get(k, [0])[0], *v[1:]]
+                     for k, v in t1.items() if v[0] > t0.get(k, [0])[0]})
         return out

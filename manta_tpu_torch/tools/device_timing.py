@@ -45,6 +45,12 @@ Counterpart of benchmarks/device_timing.py, one bench per entry of its
                      whose first trace comes that late; the launches
                      against the kernel records and the runtime's launch
                      calls each trace holds. Not part of ``all``
+  trace_span         a phase-2 worker's trace (parallel/worker_trace) held
+                     open for ``--span-s`` seconds (default 200, a whole-
+                     genome worker's phase 2) around ``--span-calls``
+                     router calls (default 8000) spread over it: the
+                     launches against the trace's kernel records, by
+                     tenth of the span. Not part of ``all``
   scan_router        a whole ``DeviceScanContext.scan_multi`` call (staging,
                      copies, kernel, results back on the host) on 47 reads
                      x 2 junction targets, a typical workflow call, on the
@@ -874,6 +880,77 @@ def bench_trace_aging(ctx):
                 ctx.emit(rec)
 
 
+def bench_trace_span(ctx):
+    """A phase-2 worker's trace (``parallel/worker_trace``) held open as
+    long as a whole-genome worker's phase 2: this process arms itself as
+    a worker and makes its first device call (its context, then the
+    CUDA-only profiler, as in a worker), then calls the split router
+    ``--span-calls`` times spread evenly over ``--span-s`` seconds and
+    writes its trace as a worker does at exit. One router call before
+    the span takes what a first call costs once (the kernel's module
+    loaded into the context, the first copies), so that the span's first
+    tenth holds calls like the others. The record: the wrapper's
+    launches against the trace's kernel records, both by tenth of the
+    span, so that records lost the later the more (``trace_aging``)
+    show in the last tenths, and the launch and record before it."""
+    import tempfile
+
+    import torch
+
+    from ..parallel import worker_trace
+    from ..scoring.device_scan import DeviceScanContext
+    batch, idx, qconv, targets, ranges = _router_inputs(ctx)
+    n, span = ctx.args.span_calls, ctx.args.span_s
+    launched = [0] * 10
+    with tempfile.TemporaryDirectory() as d:
+        worker_trace.arm(d)
+        worker_trace.enter_phase2_worker(0)
+        scan = DeviceScanContext(device=ctx.device)
+        # the kernel built (a workflow's parent builds it before the
+        # fork), the context made and the profiler started (seconds)
+        # before the span: the router's first call finds them ready
+        from ..align import cuda_splitscore
+        cuda_splitscore._lib()
+        worker_trace.device_call(ctx.device)
+        scan.scan_multi(FLANK, batch, idx, qconv, targets, ranges)
+        torch.cuda.synchronize(ctx.device)
+        # a record is the call's before the span if it starts before
+        # the middle of the 0.2 s between them: clock skews below 0.1 s
+        # put no record on the wrong side
+        boundary = time.time() + 0.1
+        t0 = boundary + 0.1
+        time.sleep(0.2)
+        for i in range(n):
+            time.sleep(max(0.0, t0 + span * i / n - time.time()))
+            launched[min(9, int((time.time() - t0) / span * 10))] += 1
+            scan.scan_multi(FLANK, batch, idx, qconv, targets, ranges)
+        worker_trace.bin_finished()
+        worker_trace._write()
+        worker_trace.disarm()
+        (trace,) = read_worker_traces(d)
+    kept, before = [0] * 10, 0
+    for name, start, _dur in trace["events"] or ():
+        if kernel_of(name) != "split_score":
+            continue
+        if start / 1e9 < boundary:
+            before += 1
+        else:
+            kept[min(9, max(0, int((start / 1e9 - t0) / span * 10)))] += 1
+    launches = trace["counts"]["launches"]["split_score"]
+    records = before + sum(kept)
+    ctx.emit({"kernel": "trace_span", "device": ctx.device_name,
+              "span_s": span, "launches": launches,
+              "kernel_records": records, "lost": launches - records,
+              "records_before_span": before,
+              "launches_by_tenth": launched, "records_by_tenth": kept,
+              "clock": trace["clock"],
+              "trace_start_s": trace["marks"]["trace_started"]
+              - trace["marks"]["context_made"]})
+    if launches != records:
+        raise AssertionError(f"the trace kept {records} of {launches} "
+                             "launches")
+
+
 def bench_split_mxu(ctx):
     """The matmul split scan over junction groups
     (device_splitscore_mxu.junction_split_score)."""
@@ -1292,8 +1369,8 @@ def _workers_records(reading: dict, lines: dict, records: list[dict],
 def _run_in_workers(run, run_dir: str):
     """``run()``, a workflow at -j N, with its phase-2 workers' device
     trace armed (``parallel/worker_trace``) and this process's file
-    descriptor 2 teed for their exit lines: (merged reading, the exit
-    lines' sums)."""
+    descriptor 2 teed for their exit lines: (merged reading, the
+    ``WorkflowCounts`` that read them)."""
     from ..parallel import worker_trace
     from .device_counts import WorkflowCounts
     workspace = os.path.join(run_dir, "workspace")
@@ -1305,7 +1382,7 @@ def _run_in_workers(run, run_dir: str):
         worker_trace.disarm()
     reading = merge_worker_traces(read_worker_traces(workspace),
                                   phase2_window(run_dir))
-    return reading, wc.counts()
+    return reading, wc
 
 
 def bench_workflow(ctx):
@@ -1323,7 +1400,11 @@ def bench_workflow(ctx):
     and the records carry the merge of their traces and the -j N
     fields (``_workers_records``); the launches in the traces, by the
     wrappers and on the exit lines must all be equal, and the seams'
-    calls and work equal to the exit lines'."""
+    calls and work equal to the exit lines'.
+
+    Each kernel's record also holds ``shapes``, the shapes it was
+    launched at (``device_counts.parse_shapes``): K1's padded buckets
+    and K3's tiers with the most reads and targets of a call."""
     import shutil
 
     import torch
@@ -1349,9 +1430,11 @@ def bench_workflow(ctx):
                      verbose=False, **kw)
 
     if args.jobs == 1:
-        reading = profile_workflow(run, ctx.device)
+        from .device_counts import WorkflowCounts
+        with WorkflowCounts() as wc:
+            reading = profile_workflow(run, ctx.device)
     else:
-        reading, lines = _run_in_workers(run, run_dir)
+        reading, wc = _run_in_workers(run, run_dir)
     device_name = (torch.cuda.get_device_name(ctx.device)
                    if ctx.device.type == "cuda" else ctx.device_name)
     records = workflow_records(reading, phase2_wall(run_dir), device_name,
@@ -1363,7 +1446,12 @@ def bench_workflow(ctx):
                  if r["launches_profiler"] not in (None,
                                                    r["launches_wrapper"])]
     else:
-        wrong = _workers_records(reading, lines, records, args.jobs)
+        wrong = _workers_records(reading, wc.counts(), records, args.jobs)
+    # the shapes each kernel was launched at, as the dispatcher and the
+    # router counted them (at -j N on the workers' exit lines)
+    shapes = wc.shapes()
+    for rec in records[:-1]:
+        rec["shapes"] = shapes.get(rec["kernel"], {})
     if ctx.device.type == "cpu":
         wrong += [f"{r['kernel']} launched on the cpu" for r in records[:-1]
                   if r["launches_wrapper"]]
@@ -1393,10 +1481,11 @@ BENCHES = {
 EXTRA_BENCHES = {"jump_layouts": bench_jump_layouts,
                  "scan_router": bench_scan_router,
                  "workflow": bench_workflow,
-                 "trace_aging": bench_trace_aging}
+                 "trace_aging": bench_trace_aging,
+                 "trace_span": bench_trace_span}
 # the benches that launch a hand-written kernel: the card only
 CUDA_ONLY = ("jump_cuda", "jump_cuda_bounded", "jump_layouts", "split_cuda",
-             "split_cuda_factored", "trace_aging")
+             "split_cuda_factored", "trace_aging", "trace_span")
 
 
 def _shape(n):
@@ -1456,6 +1545,10 @@ def main(argv=None) -> int:
     ap.add_argument("--first-trace-after-s", type=int, default=0,
                     help="trace_aging: seconds this process waits before "
                          "its first trace")
+    ap.add_argument("--span-s", type=int, default=200,
+                    help="trace_span: seconds the worker's trace lasts")
+    ap.add_argument("--span-calls", type=int, default=8000,
+                    help="trace_span: router calls spread over the span")
     ap.add_argument("--jobs", type=int, default=1,
                     help="workflow: the run's -j; above 1 each phase-2 "
                          "worker traces its own device work")

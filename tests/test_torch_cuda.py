@@ -774,3 +774,23 @@ def test_workflow_mode_at_jobs_2_traces_the_workers(cuda, tmp_path):
     assert phase2["events_outside_phase2"] == phase2["overlapping_kernels"] \
         == 0
     assert 0 < phase2["device_busy_ms"] <= phase2["phase2_wall_s"] * 1e3
+    # the shapes on the exit lines: every router call at a tier
+    assert sum(t["calls"] for t in k3["shapes"].values()) == k3["calls"]
+
+
+def test_trace_span_keeps_every_record(cuda):
+    """A worker's trace held open for 20 s around 400 router calls, in a
+    child (a fresh process, as a worker's trace is its first), after one
+    call before the span: every launch has its kernel record, and every
+    tenth of the span holds records."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "manta_tpu_torch.tools.device_timing",
+         "--kernel", "trace_span", "--span-s", "20", "--span-calls", "400"],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    rec = next(json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith('{"kernel": "trace_span"'))
+    assert rec["launches"] == rec["kernel_records"] == 401, rec
+    assert rec["records_before_span"] == 1, rec
+    assert sum(rec["records_by_tenth"]) == 400, rec
+    assert all(n > 0 for n in rec["records_by_tenth"]), rec
