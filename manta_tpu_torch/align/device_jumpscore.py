@@ -620,13 +620,14 @@ def make_bucketed_scorer(scores, jump_score: int, device):
         B = len(jobs)
         if B == 0:
             return np.zeros(0, np.int32)
-        worker_trace.device_call(device)
-        _t0 = _time.perf_counter()
-        Bp = _bucket(B, tiers=(8, 16, 32, 64, 128, 256))
-        t = from_reference_inputs(*pad_jobs(jobs, Bp), device)
-        res = _score(*t, scores, jump_score).cpu().numpy()[:B]
-        raise_on_kernel_error()
-        dt = _time.perf_counter() - _t0
+        with worker_trace.span("k1.dispatch"):
+            worker_trace.device_call(device)
+            _t0 = _time.perf_counter()
+            Bp = _bucket(B, tiers=(8, 16, 32, 64, 128, 256))
+            t = from_reference_inputs(*pad_jobs(jobs, Bp), device)
+            res = _score(*t, scores, jump_score).cpu().numpy()[:B]
+            raise_on_kernel_error()
+            dt = _time.perf_counter() - _t0
         s = DISPATCH_STATS
         if s["calls"] == 0:
             s["first_wall"] = dt

@@ -355,10 +355,15 @@ def estimate_chrom_depths(bam_paths: list[str],
         def worker(ji, path, tid, size):
             from ..io.bam import BamReader
             from ..io.bgzf import set_worker_io_threads
+            from ..parallel import worker_trace
+            worker_trace.enter_worker("phase0")
             fanout = min(n_jobs, len(jobs))
             set_worker_io_threads(fanout)
             BamReader.set_worker_cache_budget(fanout)
-            queue.put((ji, read_chrom_depth(readers[path], tid, size)))
+            with worker_trace.span("phase0.bam", bam=path,
+                                   chrom=jobs[ji][2]):
+                depth = read_chrom_depth(readers[path], tid, size)
+            queue.put((ji, depth))
 
         # in-flight scheduling — see parallel.forkpool for why
         # is_alive() gating deadlocks

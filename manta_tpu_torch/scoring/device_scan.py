@@ -264,6 +264,13 @@ class DeviceScanContext:
     def scan_multi(self, flank_score_size, batch, read_idx, qconv,
                    targets, bp_ranges):
         """Same contract as evidence.split_read_scan_multi."""
+        with worker_trace.span("k3.route",
+                               pairs=len(read_idx) * len(targets)):
+            return self._scan_multi(flank_score_size, batch, read_idx,
+                                    qconv, targets, bp_ranges)
+
+    def _scan_multi(self, flank_score_size, batch, read_idx, qconv,
+                    targets, bp_ranges):
         worker_trace.device_call(self.device)
         t0 = time.perf_counter()
         read_idx = np.asarray(read_idx, np.int64)

@@ -944,8 +944,7 @@ def bench_trace_span(ctx):
               "records_before_span": before,
               "launches_by_tenth": launched, "records_by_tenth": kept,
               "clock": trace["clock"],
-              "trace_start_s": trace["marks"]["trace_started"]
-              - trace["marks"]["context_made"]})
+              "trace_start_s": _span_s(trace, "trace.start")})
     if launches != records:
         raise AssertionError(f"the trace kept {records} of {launches} "
                              "launches")
@@ -1284,23 +1283,46 @@ def merge_worker_traces(traces: list[dict],
             "overlapping_kernels": overlaps if on_card else None}
 
 
+def _first(trace: dict, names) -> list | None:
+    """The first closed span of ``trace`` named one of ``names``."""
+    return next((s for s in trace.get("spans") or ()
+                 if s[0] in names and s[2] is not None), None)
+
+
+def _span_s(trace: dict, name: str) -> float | None:
+    """Seconds of the first span ``name`` of a worker's trace."""
+    s = _first(trace, (name,))
+    return None if s is None else (s[2] - s[1]) / 1e9
+
+
 def _marks(traces: list[dict], start: float) -> dict:
-    """Each mark of the workers' lives (``parallel/worker_trace``) as
-    seconds after phase 2's start, its minimum, median and maximum over
-    the workers that have it, and the spans the trace itself costs: its
-    start (the profiler's, after the context) and its stop."""
+    """The moments of the workers' lives, read from their spans
+    (``parallel/worker_trace``), as seconds after phase 2's start, its
+    minimum, median and maximum over the workers that have it, and the
+    spans the trace itself costs: its start (the profiler's, after the
+    context) and its stop. Entered and exit: the ``worker`` span; first
+    device call: the first ``k1.dispatch`` or ``k3.route``; context made
+    and trace started: the ends of ``cuda.context`` and ``trace.start``;
+    bin finished: the end of ``worker.write``; trace stopped: the end of
+    ``trace.stop``."""
     from statistics import median
+    at = {"entered": (("worker",), 1), "exit": (("worker",), 2),
+          "first_device_call": (("k1.dispatch", "k3.route"), 1),
+          "context_made": (("cuda.context",), 2),
+          "trace_started": (("trace.start",), 2),
+          "bin_finished": (("worker.write",), 2),
+          "trace_stopped": (("trace.stop",), 2)}
     per: dict[str, list] = {}
     for t in traces:
-        m = t.get("marks") or {}
-        for name, at in m.items():
-            per.setdefault(name, []).append(at - start)
-        for span, (a, b) in {"trace_start_s": ("context_made",
-                                                "trace_started"),
-                             "trace_stop_s": ("exit", "trace_stopped")
-                             }.items():
-            if a in m and b in m:
-                per.setdefault(span, []).append(m[b] - m[a])
+        for name, (spans, end) in at.items():
+            s = _first(t, spans)
+            if s is not None:
+                per.setdefault(name, []).append(s[end] / 1e9 - start)
+        for key, name in (("trace_start_s", "trace.start"),
+                          ("trace_stop_s", "trace.stop")):
+            s = _span_s(t, name)
+            if s is not None:
+                per.setdefault(key, []).append(s)
     return {name: {"min": min(v), "median": median(v), "max": max(v)}
             for name, v in per.items()}
 

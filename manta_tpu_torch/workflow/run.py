@@ -23,6 +23,9 @@ by the module's own line numbers, only in:
 - :223 the log prefix is ``[manta-tpu-torch]``;
 - :464-484 phase 2 hands ``device`` to the refiner and the scorer;
 - :1254 and :1274-1285 the CLI description and --device-scoring help;
+- every phase, fan-out worker and phase-2 stage records its span of the
+  run's trace (``parallel.worker_trace``: ``traced_workflow``,
+  ``enter_worker``, ``span``), a no-op unless the trace is armed;
 - :1 and :75 docstring wording.
 """
 
@@ -50,6 +53,7 @@ from ..format.vcfwriter import (
 )
 
 from ..candidates.refiner import SVCandidateAssemblyRefiner
+from ..parallel import worker_trace
 from ..parallel.forkpool import drain_fork_result
 from ..scoring.scorer import SVScorer
 
@@ -180,6 +184,7 @@ def build_kernels(device_scoring) -> None:
         build("split_score")
 
 
+@worker_trace.traced_workflow
 def run_workflow(normal_bams: list[str], tumor_bams: list[str],
                  reference: str, run_dir: str,
                  regions: list[str] | None = None,
@@ -307,75 +312,79 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     # phase 0: alignment stats (reusable checkpoint; reference:
     # pyflow task resume + --rescore, mantaWorkflow.py)
     stats_path = os.path.join(run_dir, "workspace", "alignmentStats.json")
-    if tasks.is_done("alignmentStats") or \
-            (is_rescore and os.path.exists(stats_path)):
-        log("resume: reusing fragment-size statistics")
-        stats_set = ReadGroupStatsSet.load(stats_path)
-        stats_list = [stats_set.get_stats(p) for p in bams]
-    else:
-        log("estimating fragment-size statistics")
-        stats_set = ReadGroupStatsSet()
-        if n_jobs > 1 and len(bams) > 1:
-            # per-BAM estimates are independent; fan out like the
-            # reference's per-BAM GetAlignmentStats tasks
-            # (mantaWorkflow.py:190-202)
-            import multiprocessing as mp
-            from ..core.fragstats import ReadGroupStats
-            ctx = mp.get_context("fork")
-            queue = ctx.SimpleQueue()
-
-            def stats_worker(i, p):
-                from ..io.bam import BamReader
-                from ..io.bgzf import set_worker_io_threads
-                fanout = min(n_jobs, len(bams))
-                set_worker_io_threads(fanout)
-                BamReader.set_worker_cache_budget(fanout)
-                per_rg = extract_read_group_stats_set(
-                    p, reference=reference,
-                    default_stats=existing_align_stats,
-                    per_read_group=per_read_group_stats)
-                queue.put((i, {rg: s.to_dict()
-                               for rg, s in per_rg.items()}))
-
-            # in-flight scheduling — see parallel.forkpool.drain_fork_result for why
-            # is_alive() gating deadlocks
-            results: dict[int, dict] = {}
-            procs: list = []
-            nxt = 0
-            in_flight = 0
-            while len(results) < len(bams):
-                while nxt < len(bams) and in_flight < n_jobs:
-                    pr = ctx.Process(target=stats_worker,
-                                     args=(nxt, bams[nxt]))
-                    pr.start()
-                    procs.append(pr)
-                    in_flight += 1
-                    nxt += 1
-                i, d = drain_fork_result(queue, procs)
-                in_flight -= 1
-                results[i] = d
-            for pr in procs:
-                pr.join()
-            for i, p in enumerate(bams):
-                stats_set.set_file_stats(
-                    p, {rg: ReadGroupStats.from_dict(d)
-                        for rg, d in results[i].items()})
+    with worker_trace.span("phase0.fragstats"):
+        if tasks.is_done("alignmentStats") or \
+                (is_rescore and os.path.exists(stats_path)):
+            log("resume: reusing fragment-size statistics")
+            stats_set = ReadGroupStatsSet.load(stats_path)
+            stats_list = [stats_set.get_stats(p) for p in bams]
         else:
-            for p in bams:
-                stats_set.set_file_stats(p, extract_read_group_stats_set(
-                    p, reference=reference,
-                    default_stats=existing_align_stats,
-                    per_read_group=per_read_group_stats))
-        stats_list = [stats_set.get_stats(p) for p in bams]
-        stats_set.save(stats_path)
-        tasks.mark_done("alignmentStats", [stats_path])
-    from ..workflow.stats import (
-        CpuTimes, EdgeStatsTracker, TimeBlock,
-        write_alignment_stats_summary, write_graph_stats,
-    )
-    stats_dir = os.path.join(run_dir, "results", "stats")
-    write_alignment_stats_summary(
-        stats_set, os.path.join(stats_dir, "alignmentStatsSummary.txt"))
+            log("estimating fragment-size statistics")
+            stats_set = ReadGroupStatsSet()
+            if n_jobs > 1 and len(bams) > 1:
+                # per-BAM estimates are independent; fan out like the
+                # reference's per-BAM GetAlignmentStats tasks
+                # (mantaWorkflow.py:190-202)
+                import multiprocessing as mp
+                from ..core.fragstats import ReadGroupStats
+                ctx = mp.get_context("fork")
+                queue = ctx.SimpleQueue()
+
+                def stats_worker(i, p):
+                    from ..io.bam import BamReader
+                    from ..io.bgzf import set_worker_io_threads
+                    worker_trace.enter_worker("phase0")
+                    fanout = min(n_jobs, len(bams))
+                    set_worker_io_threads(fanout)
+                    BamReader.set_worker_cache_budget(fanout)
+                    with worker_trace.span("phase0.bam", bam=p):
+                        per_rg = extract_read_group_stats_set(
+                            p, reference=reference,
+                            default_stats=existing_align_stats,
+                            per_read_group=per_read_group_stats)
+                    queue.put((i, {rg: s.to_dict()
+                                   for rg, s in per_rg.items()}))
+
+                # in-flight scheduling — see
+                # parallel.forkpool.drain_fork_result for why is_alive()
+                # gating deadlocks
+                results: dict[int, dict] = {}
+                procs: list = []
+                nxt = 0
+                in_flight = 0
+                while len(results) < len(bams):
+                    while nxt < len(bams) and in_flight < n_jobs:
+                        pr = ctx.Process(target=stats_worker,
+                                         args=(nxt, bams[nxt]))
+                        pr.start()
+                        procs.append(pr)
+                        in_flight += 1
+                        nxt += 1
+                    i, d = drain_fork_result(queue, procs)
+                    in_flight -= 1
+                    results[i] = d
+                for pr in procs:
+                    pr.join()
+                for i, p in enumerate(bams):
+                    stats_set.set_file_stats(
+                        p, {rg: ReadGroupStats.from_dict(d)
+                            for rg, d in results[i].items()})
+            else:
+                for p in bams:
+                    stats_set.set_file_stats(p, extract_read_group_stats_set(
+                        p, reference=reference,
+                        default_stats=existing_align_stats,
+                        per_read_group=per_read_group_stats))
+            stats_list = [stats_set.get_stats(p) for p in bams]
+            stats_set.save(stats_path)
+            tasks.mark_done("alignmentStats", [stats_path])
+        from ..workflow.stats import (
+            CpuTimes, EdgeStatsTracker, TimeBlock,
+            write_alignment_stats_summary, write_graph_stats,
+        )
+        stats_dir = os.path.join(run_dir, "results", "stats")
+        write_alignment_stats_summary(
+            stats_set, os.path.join(stats_dir, "alignmentStatsSummary.txt"))
 
     scan_opt = ScannerOptions(
         min_candidate_variant_size=min_candidate_variant_size,
@@ -397,28 +406,29 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
         from ..core.chromdepth import (
             estimate_chrom_depths, parse_chrom_depth, write_chrom_depth,
         )
-        depth_path = os.path.join(run_dir, "workspace", "chromDepth.txt")
-        if use_existing_chrom_depths:
-            # (reference: --useExistingChromDepths, mantaWorkflow.py:843
-            # — skip estimation; the user pre-places chromDepth.txt in
-            # the run workspace)
-            if not os.path.exists(depth_path):
-                raise FileNotFoundError(
-                    f"--useExistingChromDepths set but {depth_path} "
-                    "not found")
-            log("using pre-calculated chromosome depth")
-            chrom_depths = parse_chrom_depth(depth_path)
-        elif tasks.is_done("chromDepth") or \
-                (is_rescore and os.path.exists(depth_path)):
-            log("resume: reusing chromosome depth")
-            chrom_depths = parse_chrom_depth(depth_path)
-        else:
-            log("estimating chromosome depth")
-            depth_bams = normal_bams if normal_bams else tumor_bams
-            chrom_depths = estimate_chrom_depths(
-                depth_bams, reference=reference, n_jobs=n_jobs)
-            write_chrom_depth(depth_path, chrom_depths)
-            tasks.mark_done("chromDepth", [depth_path])
+        with worker_trace.span("phase0.depth"):
+            depth_path = os.path.join(run_dir, "workspace", "chromDepth.txt")
+            if use_existing_chrom_depths:
+                # (reference: --useExistingChromDepths, mantaWorkflow.py:843
+                # — skip estimation; the user pre-places chromDepth.txt in
+                # the run workspace)
+                if not os.path.exists(depth_path):
+                    raise FileNotFoundError(
+                        f"--useExistingChromDepths set but {depth_path} "
+                        "not found")
+                log("using pre-calculated chromosome depth")
+                chrom_depths = parse_chrom_depth(depth_path)
+            elif tasks.is_done("chromDepth") or \
+                    (is_rescore and os.path.exists(depth_path)):
+                log("resume: reusing chromosome depth")
+                chrom_depths = parse_chrom_depth(depth_path)
+            else:
+                log("estimating chromosome depth")
+                depth_bams = normal_bams if normal_bams else tumor_bams
+                chrom_depths = estimate_chrom_depths(
+                    depth_bams, reference=reference, n_jobs=n_jobs)
+                write_chrom_depth(depth_path, chrom_depths)
+                tasks.mark_done("chromDepth", [depth_path])
 
     region_list = plan_scan_segments(header, regions, call_regions,
                                      scan_size_mb)
@@ -453,14 +463,18 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
             log(f"graph phase complete in {build_tb.times.wall:.1f}s "
                 "(native merge/finalize/save)")
         else:
-            with build_tb:
+            # every segment scanned in this process
+            with build_tb, worker_trace.span("phase1.segments"), \
+                    worker_trace.span("phase1.segment",
+                                      regions=[list(r) for r in region_list]):
                 locus_set = estimate_sv_loci(
                     bams, is_tumor, scanner, graph_opt, region_list, fasta,
                     chrom_depths=chrom_depths)
-            with merge_tb:
+            with merge_tb, worker_trace.span("phase1.finalize"):
                 locus_set.finalize()
             save_t0 = time.perf_counter()
-            locus_set.save(graph_path)
+            with worker_trace.span("phase1.save"):
+                locus_set.save(graph_path)
             log(f"graph built in {build_tb.times.wall:.1f}s, finalized "
                 f"in {merge_tb.times.wall:.1f}s, saved in "
                 f"{time.perf_counter() - save_t0:.1f}s")
@@ -468,7 +482,8 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     # locus slots, matching the reference's save/load locus renumbering
     from ..graph.locusgraph import SVLocusSet
     load_t0 = time.perf_counter()
-    locus_set = SVLocusSet.load(graph_path)
+    with worker_trace.span("phase1.load"):
+        locus_set = SVLocusSet.load(graph_path)
     log(f"graph loaded for phase 2 in {time.perf_counter() - load_t0:.1f}s")
     if built:
         write_graph_stats(
@@ -484,277 +499,290 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
         return run_dir
 
     # phase 2: candidate generation and scoring
-    log("generating and scoring SV candidates")
-    variants_dir = os.path.join(run_dir, "results", "variants")
-    unsorted_dir = os.path.join(run_dir, "workspace")
-    sample_names = [get_sample_name(r, f"SAMPLE{i + 1}")
-                    for i, r in enumerate(readers)]
-    proc_opt = ProcessorOptions(
-        min_candidate_variant_size=min_candidate_variant_size, is_rna=is_rna,
-        min_candidate_spanning_count=adv["min_candidate_spanning_count"],
-        min_scored_variant_size=adv["min_scored_variant_size"])
-    # remote-read retrieval defaults differ by calling mode
-    # (reference: mantaWorkflow.py:535-543, configManta.py.ini:44-52)
-    is_cancer_mode = is_somatic or is_tumor_only
-    enable_remote_retrieval = (
-        adv["enable_remote_read_retrieval_cancer"] if is_cancer_mode
-        else adv["enable_remote_read_retrieval_germline"])
-
-    vcf_names = ["candidateSV.vcf"]
-    if is_rna:
-        vcf_names.append("rnaSV.vcf")
-    elif is_tumor_only:
-        vcf_names.append("tumorSV.vcf")
-    else:
-        vcf_names.append("diploidSV.vcf")
-        if is_somatic:
-            vcf_names.append("somaticSV.vcf")
-
-    def build_components(bin_suffix: str = ""):
-        """Construct per-process phase-2 pipeline components
-        (readers/writers re-opened per process)."""
-        from ..format.vcfwriter import VcfWriterRnaSV
-        comp_fasta = FastaReader(reference)
-        finder = SVFinder(scanner, bams, is_tumor, locus_set.sample_counts,
-                          comp_fasta, chrom_depths=chrom_depths,
-                          is_rna=is_rna,
-                          skip_evidence_signal_filter=(
-                              not adv["enable_evidence_signal_filter"]))
-        refiner = SVCandidateAssemblyRefiner(
-            scanner, finder.readers, is_tumor, comp_fasta,
-            chrom_depths=chrom_depths,
+    with worker_trace.span("phase2"):
+        log("generating and scoring SV candidates")
+        variants_dir = os.path.join(run_dir, "results", "variants")
+        unsorted_dir = os.path.join(run_dir, "workspace")
+        sample_names = [get_sample_name(r, f"SAMPLE{i + 1}")
+                        for i, r in enumerate(readers)]
+        proc_opt = ProcessorOptions(
             min_candidate_variant_size=min_candidate_variant_size,
-            is_output_contig=is_output_contig, is_rna=is_rna,
-            is_unstranded_rna=is_unstranded_rna,
-            enable_remote_read_retrieval=enable_remote_retrieval,
-            jump_score_backend=jump_backend, device=scoring_device)
-        from ..scoring.scorer import CallOptionsDiploid, CallOptionsSomatic
-        scorer = SVScorer(
-            scanner, finder.readers, is_tumor, comp_fasta,
-            chrom_depths=chrom_depths, is_rna=is_rna,
-            use_device_scoring=device_scoring, device=scoring_device,
-            diploid_opt=CallOptionsDiploid(
-                min_output_alt_score=adv["min_diploid_variant_score"],
-                min_pass_alt_score=adv["min_pass_diploid_variant_score"],
-                min_pass_gt_score=adv["min_pass_diploid_gt_score"],
-                dup_gt_model=adv["dup_genotype_model"]),
-            somatic_opt=CallOptionsSomatic(
-                min_output_somatic_score=adv["min_somatic_score"],
-                min_pass_somatic_score=adv["min_pass_somatic_score"]))
+            is_rna=is_rna,
+            min_candidate_spanning_count=adv["min_candidate_spanning_count"],
+            min_scored_variant_size=adv["min_scored_variant_size"])
+        # remote-read retrieval defaults differ by calling mode
+        # (reference: mantaWorkflow.py:535-543, configManta.py.ini:44-52)
+        is_cancer_mode = is_somatic or is_tumor_only
+        enable_remote_retrieval = (
+            adv["enable_remote_read_retrieval_cancer"] if is_cancer_mode
+            else adv["enable_remote_read_retrieval_germline"])
 
-        def vpath(name):
-            return os.path.join(unsorted_dir, name + bin_suffix)
-
-        cand_writer = VcfWriterCandidateSV(
-            reference, header.ref_names, header.ref_lengths, comp_fasta,
-            vpath("candidateSV.vcf"), is_output_contig=is_output_contig)
-        cand_writer.write_header(PROG_NAME, PROG_VERSION, [])
-        diploid_writer = somatic_writer = tumor_writer = rna_writer = None
+        vcf_names = ["candidateSV.vcf"]
         if is_rna:
-            rna_writer = VcfWriterRnaSV(
-                reference, header.ref_names, header.ref_lengths, comp_fasta,
-                vpath("rnaSV.vcf"), is_output_contig=is_output_contig)
-            rna_writer.write_header(PROG_NAME, PROG_VERSION, sample_names)
+            vcf_names.append("rnaSV.vcf")
         elif is_tumor_only:
-            tumor_writer = VcfWriterTumorSV(
-                scorer.tumor_opt, chrom_depths is not None,
-                reference, header.ref_names, header.ref_lengths, comp_fasta,
-                vpath("tumorSV.vcf"), is_output_contig=is_output_contig)
-            tumor_writer.write_header(PROG_NAME, PROG_VERSION, sample_names)
+            vcf_names.append("tumorSV.vcf")
         else:
-            diploid_sample_names = [n for n, t in zip(sample_names, is_tumor)
-                                    if not t]
-            diploid_writer = VcfWriterDiploidSV(
-                scorer.diploid_opt, chrom_depths is not None,
-                reference, header.ref_names, header.ref_lengths, comp_fasta,
-                vpath("diploidSV.vcf"), is_output_contig=is_output_contig)
-            diploid_writer.write_header(PROG_NAME, PROG_VERSION,
-                                        diploid_sample_names)
+            vcf_names.append("diploidSV.vcf")
             if is_somatic:
-                somatic_writer = VcfWriterSomaticSV(
-                    scorer.somatic_opt, chrom_depths is not None,
+                vcf_names.append("somaticSV.vcf")
+
+        def build_components(bin_suffix: str = ""):
+            """Construct per-process phase-2 pipeline components
+            (readers/writers re-opened per process)."""
+            from ..format.vcfwriter import VcfWriterRnaSV
+            comp_fasta = FastaReader(reference)
+            finder = SVFinder(scanner, bams, is_tumor, locus_set.sample_counts,
+                              comp_fasta, chrom_depths=chrom_depths,
+                              is_rna=is_rna,
+                              skip_evidence_signal_filter=(
+                                  not adv["enable_evidence_signal_filter"]))
+            refiner = SVCandidateAssemblyRefiner(
+                scanner, finder.readers, is_tumor, comp_fasta,
+                chrom_depths=chrom_depths,
+                min_candidate_variant_size=min_candidate_variant_size,
+                is_output_contig=is_output_contig, is_rna=is_rna,
+                is_unstranded_rna=is_unstranded_rna,
+                enable_remote_read_retrieval=enable_remote_retrieval,
+                jump_score_backend=jump_backend, device=scoring_device)
+            from ..scoring.scorer import CallOptionsDiploid, CallOptionsSomatic
+            scorer = SVScorer(
+                scanner, finder.readers, is_tumor, comp_fasta,
+                chrom_depths=chrom_depths, is_rna=is_rna,
+                use_device_scoring=device_scoring, device=scoring_device,
+                diploid_opt=CallOptionsDiploid(
+                    min_output_alt_score=adv["min_diploid_variant_score"],
+                    min_pass_alt_score=adv["min_pass_diploid_variant_score"],
+                    min_pass_gt_score=adv["min_pass_diploid_gt_score"],
+                    dup_gt_model=adv["dup_genotype_model"]),
+                somatic_opt=CallOptionsSomatic(
+                    min_output_somatic_score=adv["min_somatic_score"],
+                    min_pass_somatic_score=adv["min_pass_somatic_score"]))
+
+            def vpath(name):
+                return os.path.join(unsorted_dir, name + bin_suffix)
+
+            cand_writer = VcfWriterCandidateSV(
+                reference, header.ref_names, header.ref_lengths, comp_fasta,
+                vpath("candidateSV.vcf"), is_output_contig=is_output_contig)
+            cand_writer.write_header(PROG_NAME, PROG_VERSION, [])
+            diploid_writer = somatic_writer = tumor_writer = rna_writer = None
+            if is_rna:
+                rna_writer = VcfWriterRnaSV(
                     reference, header.ref_names, header.ref_lengths,
-                    comp_fasta, vpath("somaticSV.vcf"),
-                    is_output_contig=is_output_contig)
-                somatic_writer.write_header(PROG_NAME, PROG_VERSION,
-                                            sample_names)
+                    comp_fasta,
+                    vpath("rnaSV.vcf"), is_output_contig=is_output_contig)
+                rna_writer.write_header(PROG_NAME, PROG_VERSION, sample_names)
+            elif is_tumor_only:
+                tumor_writer = VcfWriterTumorSV(
+                    scorer.tumor_opt, chrom_depths is not None,
+                    reference, header.ref_names, header.ref_lengths,
+                    comp_fasta,
+                    vpath("tumorSV.vcf"), is_output_contig=is_output_contig)
+                tumor_writer.write_header(PROG_NAME, PROG_VERSION,
+                                          sample_names)
+            else:
+                diploid_sample_names = [
+                    n for n, t in zip(sample_names, is_tumor) if not t]
+                diploid_writer = VcfWriterDiploidSV(
+                    scorer.diploid_opt, chrom_depths is not None,
+                    reference, header.ref_names, header.ref_lengths,
+                    comp_fasta,
+                    vpath("diploidSV.vcf"), is_output_contig=is_output_contig)
+                diploid_writer.write_header(PROG_NAME, PROG_VERSION,
+                                            diploid_sample_names)
+                if is_somatic:
+                    somatic_writer = VcfWriterSomaticSV(
+                        scorer.somatic_opt, chrom_depths is not None,
+                        reference, header.ref_names, header.ref_lengths,
+                        comp_fasta, vpath("somaticSV.vcf"),
+                        is_output_contig=is_output_contig)
+                    somatic_writer.write_header(PROG_NAME, PROG_VERSION,
+                                                sample_names)
 
-        writer = SVWriter(
-            cand_writer, diploid_writer, somatic_writer, tumor_writer,
-            rna_writer=rna_writer,
-            diploid_sample_count=sum(1 for t in is_tumor if not t),
-            min_output_alt_score=scorer.diploid_opt.min_output_alt_score,
-            min_output_somatic_score=(
-                scorer.somatic_opt.min_output_somatic_score))
+            writer = SVWriter(
+                cand_writer, diploid_writer, somatic_writer, tumor_writer,
+                rna_writer=rna_writer,
+                diploid_sample_count=sum(1 for t in is_tumor if not t),
+                min_output_alt_score=scorer.diploid_opt.min_output_alt_score,
+                min_output_somatic_score=(
+                    scorer.somatic_opt.min_output_somatic_score))
 
-        tracker = EdgeStatsTracker()
-        evidence_writer = None
-        if generate_evidence_bam:
-            from ..scoring.evidence_bam import SVEvidenceWriter
-            evidence_dir = os.path.join(run_dir, "results", "evidence")
-            os.makedirs(evidence_dir, exist_ok=True)
-            out_paths = []
-            for bi, bam_path in enumerate(bams):
-                prefix = os.path.splitext(os.path.basename(bam_path))[0]
-                out_paths.append(os.path.join(
-                    evidence_dir,
-                    f"evidence_{bi}.{prefix}{bin_suffix}.bam"))
-            evidence_writer = SVEvidenceWriter(
-                bams, out_paths, reference=reference)
-        processor = SVCandidateProcessor(
-            proc_opt, refiner, scorer, writer, locus_set, is_somatic,
-            is_tumor_only, edge_tracker=tracker,
-            evidence_enabled=generate_evidence_bam)
-        all_writers = [w for w in (cand_writer, diploid_writer,
-                                   somatic_writer, tumor_writer, rna_writer)
-                       if w is not None]
-        return {
-            "finder": finder, "processor": processor, "tracker": tracker,
-            "evidence_writer": evidence_writer, "writers": all_writers,
-        }
+            tracker = EdgeStatsTracker()
+            evidence_writer = None
+            if generate_evidence_bam:
+                from ..scoring.evidence_bam import SVEvidenceWriter
+                evidence_dir = os.path.join(run_dir, "results", "evidence")
+                os.makedirs(evidence_dir, exist_ok=True)
+                out_paths = []
+                for bi, bam_path in enumerate(bams):
+                    prefix = os.path.splitext(os.path.basename(bam_path))[0]
+                    out_paths.append(os.path.join(
+                        evidence_dir,
+                        f"evidence_{bi}.{prefix}{bin_suffix}.bam"))
+                evidence_writer = SVEvidenceWriter(
+                    bams, out_paths, reference=reference)
+            processor = SVCandidateProcessor(
+                proc_opt, refiner, scorer, writer, locus_set, is_somatic,
+                is_tumor_only, edge_tracker=tracker,
+                evidence_enabled=generate_evidence_bam)
+            all_writers = [w for w in (cand_writer, diploid_writer,
+                                       somatic_writer, tumor_writer,
+                                       rna_writer)
+                           if w is not None]
+            return {
+                "finder": finder, "processor": processor, "tracker": tracker,
+                "evidence_writer": evidence_writer, "writers": all_writers,
+            }
 
-    def run_edges(comps, edges):
-        """Staged candidate generation/scoring over edge chunks:
-        per-edge candidate finding + assembly (stage 1), one batched
-        contig-alignment dispatch per chunk across every edge's
-        junctions (stage 2: many edges a kernel launch, SURVEY §2.4
-        P3), then in-order selection/scoring/output (stage 3).
-        Returns the edge runtime log lines."""
-        from ..core.svmodel import is_complex_sv
-        from copy import copy as _copy
-        finder = comps["finder"]
-        processor = comps["processor"]
-        tracker = comps["tracker"]
-        evidence_writer = comps["evidence_writer"]
-        edge_runtime_log = []
-        # cross-edge batching pays off when contig scoring dispatches to
-        # the device (one launch per chunk); on the host-native backend
-        # a chunk of 1 keeps the per-edge fetch windows cache-hot.
-        # MANTA_TPU_EDGE_CHUNK overrides. The device default of 24 is
-        # the JAX package's, kept as it is until a benchmark decides it
-        # (ROADMAP.md Queue 1 item 1). On the card a dispatch of the
-        # high-span shape (a 24-edge chunk, 16 rows) took 1.7 ms of the
-        # dispatcher's wall, 0.27 ms of it K1's device time
-        # (tools.device_timing --kernel workflow; NVIDIA H100 80GB HBM3,
-        # 700.00 W; PERF.md section 6)
-        CHUNK = int(os.environ.get("MANTA_TPU_EDGE_CHUNK",
-                                   "24" if device_scoring else "1"))
-        for c0 in range(0, len(edges), CHUNK):
-            chunk = edges[c0:c0 + CHUNK]
-            prepared = []
-            for edge in chunk:
-                li, n1, n2 = edge
-                is_self = (n1 == n2)
-                finder_before = _copy(finder.stats)
-                cand_tb = TimeBlock()
-                with cand_tb:
-                    svs, groups = finder.find_candidate_sv(
-                        locus_set, li, n1, n2)
-                delta = _copy(finder.stats)
-                for k in vars(delta):
-                    setattr(delta, k,
-                            getattr(delta, k) - getattr(finder_before, k))
-                tracker.update_edge_candidates(is_self, len(svs), delta)
-                mj_groups = find_multi_junction_candidates(
-                    svs, proc_opt.min_candidate_spanning_count, is_rna)
-                mj_total = sum(len(g) for g in mj_groups)
-                tracker.update_mj_filter(
-                    is_self, sum(1 for sv in svs if is_complex_sv(sv)),
-                    max(0, len(svs) - mj_total))
-                prep_tb = TimeBlock()
-                with prep_tb:
-                    st = processor.prepare_candidates(edge, mj_groups,
-                                                      groups)
-                prepared.append((edge, svs, cand_tb, prep_tb, st))
-            processor.flush_pending([st for *_r, st in prepared])
-            for (edge, svs, cand_tb, prep_tb, st) in prepared:
-                li, n1, n2 = edge
-                fin_tb = TimeBlock()
-                with fin_tb:
-                    processor.finish_candidates(st)
-                    if evidence_writer is not None and \
-                            st.edge_support is not None:
-                        evidence_writer.write(st.edge_support)
-                total = CpuTimes()
-                for t in (cand_tb.times, prep_tb.times, fin_tb.times):
-                    total.merge(t)
-                total.wall += getattr(st, "flush_wall", 0.0)
-                tracker.add_times(st.is_self_edge, total, cand_tb.times,
-                                  st.assembly_time, st.scoring_time)
-                if total.wall >= 0.5:
-                    # (reference: EdgeRuntimeTracker.cpp stop(),
-                    # minLogTime=0.5)
-                    edge_runtime_log.append(
-                        f"{li}:{n1}:{n2}\t{total.wall:.4g}"
-                        f"\t{len(svs)}"
-                        f"\t{sum(1 for sv in svs if is_complex_sv(sv))}"
-                        f"\t{st.assembled_count}"
-                        f"\t{st.assembled_complex_count}"
-                        f"\t{cand_tb.times.wall:.4g}"
-                        f"\t{st.assembly_time.wall:.4g}"
-                        f"\t0\t{st.scoring_time.wall:.4g}\n")
-        return edge_runtime_log
-
-    all_edges = list(iterate_edges(
-        locus_set,
-        graph_node_max_edge_count=adv["graph_node_max_edge_count"]))
-    if locus_index is not None:
-        # single-locus debug mode (reference: EdgeRetrieverLocus,
-        # GSC --locus-index)
-        all_edges = [e for e in all_edges if e[0] == locus_index]
-    if is_rescore:
-        # --rescore always re-runs candidate generation and scoring
-        # (reference: mantaWorkflow.py rescore path)
-        tasks.clear("hygen")
-    hygen_artifacts = [os.path.join(unsorted_dir, n) for n in vcf_names]
-    hygen_artifacts += [
-        os.path.join(run_dir, "workspace", "edgeRuntimeLog.txt"),
-        os.path.join(stats_dir, "svCandidateGenerationStats.tsv"),
-        os.path.join(stats_dir, "svCandidateGenerationStats.xml")]
-    if tasks.is_done("hygen"):
-        log("resume: reusing candidate generation and scoring results")
-    else:
-        if (n_jobs > 1 or hygen_bin_count is not None) \
-                and len(all_edges) > 1:
-            tracker, edge_runtime_log = _run_edges_parallel(
-                all_edges, locus_set, build_components, run_edges,
-                vcf_names, unsorted_dir, n_jobs, generate_evidence_bam,
-                os.path.join(run_dir, "results", "evidence"), bams,
-                edge_bin_strategy=edge_bin_strategy,
-                tasks=tasks, log=log,
-                n_bins=hygen_bin_count, bin_range=hygen_bin_range,
-                do_merge=(hygen_bin_range is None))
-            if hygen_bin_range is not None:
-                # (per-host edge count logged by _run_edges_parallel's
-                # do_merge=False path)
-                log(f"host bins {hygen_bin_range[0]}.."
-                    f"{hygen_bin_range[1] - 1} complete "
-                    "(multi-host phase 2)")
-                log_fp.close()
-                return run_dir
-        else:
-            comps = build_components()
-            edge_runtime_log = run_edges(comps, all_edges)
+        def run_edges(comps, edges):
+            """Staged candidate generation/scoring over edge chunks:
+            per-edge candidate finding + assembly (stage 1), one batched
+            contig-alignment dispatch per chunk across every edge's
+            junctions (stage 2: many edges a kernel launch, SURVEY §2.4
+            P3), then in-order selection/scoring/output (stage 3).
+            Returns the edge runtime log lines."""
+            from ..core.svmodel import is_complex_sv
+            from copy import copy as _copy
+            finder = comps["finder"]
+            processor = comps["processor"]
             tracker = comps["tracker"]
-            for w in comps["writers"]:
-                w.stream.close()
-            if comps["evidence_writer"] is not None:
-                comps["evidence_writer"].close()
-        edge_count = len(all_edges)
-        log(f"processed {edge_count} graph edges")
-        # (reference: libexec/sortEdgeLogs.py — slowest edges first)
-        edge_runtime_log.sort(
-            key=lambda l: float(l.split("\t", 2)[1]), reverse=True)
-        with open(os.path.join(run_dir, "workspace", "edgeRuntimeLog.txt"),
-                  "w") as f:
-            f.writelines(edge_runtime_log)
-        with open(os.path.join(stats_dir, "svCandidateGenerationStats.tsv"),
-                  "w") as f:
-            f.writelines(tracker.report())
-        tracker.save_xml(
-            os.path.join(stats_dir, "svCandidateGenerationStats.xml"))
-        tasks.clear("hygen.bin.")
-        tasks.mark_done("hygen", hygen_artifacts)
+            evidence_writer = comps["evidence_writer"]
+            edge_runtime_log = []
+            # cross-edge batching pays off when contig scoring dispatches to
+            # the device (one launch per chunk); on the host-native backend
+            # a chunk of 1 keeps the per-edge fetch windows cache-hot.
+            # MANTA_TPU_EDGE_CHUNK overrides. The device default of 24 is
+            # the JAX package's, kept as it is until a benchmark decides it
+            # (ROADMAP.md Queue 1 item 1). On the card a dispatch of the
+            # high-span shape (a 24-edge chunk, 16 rows) took 1.7 ms of the
+            # dispatcher's wall, 0.27 ms of it K1's device time
+            # (tools.device_timing --kernel workflow; NVIDIA H100 80GB HBM3,
+            # 700.00 W; PERF.md section 6)
+            CHUNK = int(os.environ.get("MANTA_TPU_EDGE_CHUNK",
+                                       "24" if device_scoring else "1"))
+            for c0 in range(0, len(edges), CHUNK):
+                chunk = edges[c0:c0 + CHUNK]
+                prepared = []
+                for edge in chunk:
+                    li, n1, n2 = edge
+                    is_self = (n1 == n2)
+                    with worker_trace.span("chunk.find"):
+                        finder_before = _copy(finder.stats)
+                        cand_tb = TimeBlock()
+                        with cand_tb:
+                            svs, groups = finder.find_candidate_sv(
+                                locus_set, li, n1, n2)
+                        delta = _copy(finder.stats)
+                        for k in vars(delta):
+                            setattr(delta, k, getattr(delta, k)
+                                    - getattr(finder_before, k))
+                        tracker.update_edge_candidates(is_self, len(svs),
+                                                       delta)
+                        mj_groups = find_multi_junction_candidates(
+                            svs, proc_opt.min_candidate_spanning_count,
+                            is_rna)
+                        mj_total = sum(len(g) for g in mj_groups)
+                        tracker.update_mj_filter(
+                            is_self,
+                            sum(1 for sv in svs if is_complex_sv(sv)),
+                            max(0, len(svs) - mj_total))
+                    prep_tb = TimeBlock()
+                    with worker_trace.span("chunk.assemble"), prep_tb:
+                        st = processor.prepare_candidates(edge, mj_groups,
+                                                          groups)
+                    prepared.append((edge, svs, cand_tb, prep_tb, st))
+                with worker_trace.span("chunk.contig_align"):
+                    processor.flush_pending([st for *_r, st in prepared])
+                for (edge, svs, cand_tb, prep_tb, st) in prepared:
+                    li, n1, n2 = edge
+                    fin_tb = TimeBlock()
+                    with worker_trace.span("chunk.score"), fin_tb:
+                        processor.finish_candidates(st)
+                        if evidence_writer is not None and \
+                                st.edge_support is not None:
+                            evidence_writer.write(st.edge_support)
+                    total = CpuTimes()
+                    for t in (cand_tb.times, prep_tb.times, fin_tb.times):
+                        total.merge(t)
+                    total.wall += getattr(st, "flush_wall", 0.0)
+                    tracker.add_times(st.is_self_edge, total, cand_tb.times,
+                                      st.assembly_time, st.scoring_time)
+                    if total.wall >= 0.5:
+                        # (reference: EdgeRuntimeTracker.cpp stop(),
+                        # minLogTime=0.5)
+                        edge_runtime_log.append(
+                            f"{li}:{n1}:{n2}\t{total.wall:.4g}"
+                            f"\t{len(svs)}"
+                            f"\t{sum(1 for sv in svs if is_complex_sv(sv))}"
+                            f"\t{st.assembled_count}"
+                            f"\t{st.assembled_complex_count}"
+                            f"\t{cand_tb.times.wall:.4g}"
+                            f"\t{st.assembly_time.wall:.4g}"
+                            f"\t0\t{st.scoring_time.wall:.4g}\n")
+            return edge_runtime_log
+
+        all_edges = list(iterate_edges(
+            locus_set,
+            graph_node_max_edge_count=adv["graph_node_max_edge_count"]))
+        if locus_index is not None:
+            # single-locus debug mode (reference: EdgeRetrieverLocus,
+            # GSC --locus-index)
+            all_edges = [e for e in all_edges if e[0] == locus_index]
+        if is_rescore:
+            # --rescore always re-runs candidate generation and scoring
+            # (reference: mantaWorkflow.py rescore path)
+            tasks.clear("hygen")
+        hygen_artifacts = [os.path.join(unsorted_dir, n) for n in vcf_names]
+        hygen_artifacts += [
+            os.path.join(run_dir, "workspace", "edgeRuntimeLog.txt"),
+            os.path.join(stats_dir, "svCandidateGenerationStats.tsv"),
+            os.path.join(stats_dir, "svCandidateGenerationStats.xml")]
+        if tasks.is_done("hygen"):
+            log("resume: reusing candidate generation and scoring results")
+        else:
+            if (n_jobs > 1 or hygen_bin_count is not None) \
+                    and len(all_edges) > 1:
+                tracker, edge_runtime_log = _run_edges_parallel(
+                    all_edges, locus_set, build_components, run_edges,
+                    vcf_names, unsorted_dir, n_jobs, generate_evidence_bam,
+                    os.path.join(run_dir, "results", "evidence"), bams,
+                    edge_bin_strategy=edge_bin_strategy,
+                    tasks=tasks, log=log,
+                    n_bins=hygen_bin_count, bin_range=hygen_bin_range,
+                    do_merge=(hygen_bin_range is None))
+                if hygen_bin_range is not None:
+                    # (per-host edge count logged by _run_edges_parallel's
+                    # do_merge=False path)
+                    log(f"host bins {hygen_bin_range[0]}.."
+                        f"{hygen_bin_range[1] - 1} complete "
+                        "(multi-host phase 2)")
+                    log_fp.close()
+                    return run_dir
+            else:
+                comps = build_components()
+                edge_runtime_log = run_edges(comps, all_edges)
+                tracker = comps["tracker"]
+                for w in comps["writers"]:
+                    w.stream.close()
+                if comps["evidence_writer"] is not None:
+                    comps["evidence_writer"].close()
+            edge_count = len(all_edges)
+            log(f"processed {edge_count} graph edges")
+            # (reference: libexec/sortEdgeLogs.py — slowest edges first)
+            edge_runtime_log.sort(
+                key=lambda l: float(l.split("\t", 2)[1]), reverse=True)
+            with open(os.path.join(run_dir, "workspace", "edgeRuntimeLog.txt"),
+                      "w") as f:
+                f.writelines(edge_runtime_log)
+            with open(os.path.join(stats_dir,
+                                   "svCandidateGenerationStats.tsv"),
+                      "w") as f:
+                f.writelines(tracker.report())
+            tracker.save_xml(
+                os.path.join(stats_dir, "svCandidateGenerationStats.xml"))
+            tasks.clear("hygen.bin.")
+            tasks.mark_done("hygen", hygen_artifacts)
 
     # final output stage (reference: mantaWorkflow.py sortAllVcfs):
     # sort + dedup, ploidy-filter diploid, extract small indels, then
@@ -774,33 +802,34 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
         with open(path) as f:
             return f.readlines()
 
-    sort_t0 = time.perf_counter()
-    cand_lines = read_lines("candidateSV.vcf")
-    if cand_lines is not None:
-        cand_lines = swap_cmdline_lines(cand_lines, final_cmdline)
-        sorted_cand = sort_vcf_lines(cand_lines, print_all=True)
-        write_vcf_gz(sorted_cand,
-                     os.path.join(variants_dir, "candidateSV.vcf.gz"))
-        max_small = proc_opt.min_scored_variant_size - 1
-        if max_small >= 1:
-            write_vcf_gz(
-                extract_small_indel_lines(sorted_cand, max_small),
-                os.path.join(variants_dir, "candidateSmallIndels.vcf.gz"))
-    for name, out_name, is_diploid in (
-            ("diploidSV.vcf", "diploidSV.vcf.gz", True),
-            ("somaticSV.vcf", "somaticSV.vcf.gz", False),
-            ("tumorSV.vcf", "tumorSV.vcf.gz", False),
-            ("rnaSV.vcf", "rnaSV.vcf.gz", False)):
-        lines = read_lines(name)
-        if lines is None:
-            continue
-        lines = swap_cmdline_lines(lines, final_cmdline)
-        lines = sort_vcf_lines(lines)
-        if is_diploid:
-            lines = ploidy_filter_lines(lines)
-        write_vcf_gz(lines, os.path.join(variants_dir, out_name))
-    log(f"sorted and indexed final VCFs in "
-        f"{time.perf_counter() - sort_t0:.1f}s")
+    with worker_trace.span("final.sort_index"):
+        sort_t0 = time.perf_counter()
+        cand_lines = read_lines("candidateSV.vcf")
+        if cand_lines is not None:
+            cand_lines = swap_cmdline_lines(cand_lines, final_cmdline)
+            sorted_cand = sort_vcf_lines(cand_lines, print_all=True)
+            write_vcf_gz(sorted_cand,
+                         os.path.join(variants_dir, "candidateSV.vcf.gz"))
+            max_small = proc_opt.min_scored_variant_size - 1
+            if max_small >= 1:
+                write_vcf_gz(
+                    extract_small_indel_lines(sorted_cand, max_small),
+                    os.path.join(variants_dir, "candidateSmallIndels.vcf.gz"))
+        for name, out_name, is_diploid in (
+                ("diploidSV.vcf", "diploidSV.vcf.gz", True),
+                ("somaticSV.vcf", "somaticSV.vcf.gz", False),
+                ("tumorSV.vcf", "tumorSV.vcf.gz", False),
+                ("rnaSV.vcf", "rnaSV.vcf.gz", False)):
+            lines = read_lines(name)
+            if lines is None:
+                continue
+            lines = swap_cmdline_lines(lines, final_cmdline)
+            lines = sort_vcf_lines(lines)
+            if is_diploid:
+                lines = ploidy_filter_lines(lines)
+            write_vcf_gz(lines, os.path.join(variants_dir, out_name))
+        log(f"sorted and indexed final VCFs in "
+            f"{time.perf_counter() - sort_t0:.1f}s")
     log("workflow complete")
     log_fp.close()
     return run_dir
@@ -883,7 +912,6 @@ def _run_edges_parallel(all_edges, locus_set, build_components, run_edges,
     recognizes completed bins and never reuses a stale work plan."""
     import multiprocessing as mp
     import pickle
-    from ..parallel import worker_trace
     from ..workflow.stats import EdgeStatsTracker
     from ..workflow.tasks import content_digest
     # the merged SVGenTotalHours is the SUM of bin-worker lifetimes
@@ -927,27 +955,31 @@ def _run_edges_parallel(all_edges, locus_set, build_components, run_edges,
             return False
 
     def worker(bi, edges):
-        # a no-op unless the timing tool armed the workers' device trace
+        # a no-op unless the run's trace is armed
         worker_trace.enter_phase2_worker(bi)
         from ..io.bam import BamReader
         from ..io.bgzf import set_worker_io_threads
-        fanout = min(max(1, n_jobs), len(bins))
-        set_worker_io_threads(fanout)
-        BamReader.set_worker_cache_budget(fanout)
-        comps = build_components(f".{bi:04d}")
+        with worker_trace.span("worker.setup"):
+            fanout = min(max(1, n_jobs), len(bins))
+            set_worker_io_threads(fanout)
+            BamReader.set_worker_cache_budget(fanout)
+            comps = build_components(f".{bi:04d}")
         log_lines = run_edges(comps, edges)
-        for w in comps["writers"]:
-            w.stream.close()
-        if comps["evidence_writer"] is not None:
-            comps["evidence_writer"].close()
-        # persist the bin's runtime log + edge stats so a resumed run
-        # can reuse this bin without recomputing it; close the lifetime
-        # clock here so it records the worker's own process time
-        comps["tracker"].life_times()
-        pkl = pkl_path(bi)
-        with open(pkl + ".tmp", "wb") as f:
-            pickle.dump((bin_digests[bi], log_lines, comps["tracker"]), f)
-        os.replace(pkl + ".tmp", pkl)
+        with worker_trace.span("worker.write"):
+            for w in comps["writers"]:
+                w.stream.close()
+            if comps["evidence_writer"] is not None:
+                comps["evidence_writer"].close()
+            # persist the bin's runtime log + edge stats so a resumed run
+            # can reuse this bin without recomputing it; close the
+            # lifetime clock here so it records the worker's own process
+            # time
+            comps["tracker"].life_times()
+            pkl = pkl_path(bi)
+            with open(pkl + ".tmp", "wb") as f:
+                pickle.dump((bin_digests[bi], log_lines, comps["tracker"]),
+                            f)
+            os.replace(pkl + ".tmp", pkl)
         worker_trace.bin_finished()
         queue.put(bi)
 
@@ -1016,78 +1048,80 @@ def _run_edges_parallel(all_edges, locus_set, build_components, run_edges,
             log(f"host processed {host_edges} graph edges "
                 f"(bins {lo}..{hi - 1})")
         return None, None
-    results = []
-    for bi in range(len(bins)):
-        if not pkl_done(bi):
-            raise FileNotFoundError(
-                f"phase-2 bin {bi} incomplete (missing/stale "
-                f"{pkl_path(bi)}); run every host's phase-2 pass "
-                "before finalizing")
-        with open(pkl_path(bi), "rb") as f:
-            _digest, log_lines, bin_tracker = pickle.load(f)
-        results.append((bi, log_lines, bin_tracker))
-
-    # merge per-bin vcf shards in bin order (header from shard 0);
-    # shards are cleaned up only after every merge step succeeds so a
-    # crash mid-merge resumes from the per-bin artifacts
-    shard_t0 = time.perf_counter()
-    cleanup = []
-    for name in vcf_names:
-        out_lines = []
+    with worker_trace.span("phase2.merge_shards"):
+        results = []
         for bi in range(len(bins)):
-            shard = os.path.join(unsorted_dir, f"{name}.{bi:04d}")
-            if not os.path.exists(shard):
-                continue
-            with open(shard) as f:
-                for line in f:
-                    if line.startswith("#"):
-                        if bi == 0:
-                            out_lines.append(line)
-                    else:
-                        out_lines.append(line)
-            cleanup.append(shard)
-        with open(os.path.join(unsorted_dir, name), "w") as f:
-            f.writelines(out_lines)
+            if not pkl_done(bi):
+                raise FileNotFoundError(
+                    f"phase-2 bin {bi} incomplete (missing/stale "
+                    f"{pkl_path(bi)}); run every host's phase-2 pass "
+                    "before finalizing")
+            with open(pkl_path(bi), "rb") as f:
+                _digest, log_lines, bin_tracker = pickle.load(f)
+            results.append((bi, log_lines, bin_tracker))
 
-    # merge per-bin evidence bams
-    if generate_evidence_bam:
-        from ..io.bam import BamReader
-        from ..io.bamwriter import BamWriter
-        for smp, bam_path in enumerate(bams):
-            prefix = os.path.splitext(os.path.basename(bam_path))[0]
-            final = os.path.join(evidence_dir, f"evidence_{smp}.{prefix}.bam")
-            merged = None
+        # merge per-bin vcf shards in bin order (header from shard 0);
+        # shards are cleaned up only after every merge step succeeds so a
+        # crash mid-merge resumes from the per-bin artifacts
+        shard_t0 = time.perf_counter()
+        cleanup = []
+        for name in vcf_names:
+            out_lines = []
             for bi in range(len(bins)):
-                shard = os.path.join(
-                    evidence_dir, f"evidence_{smp}.{prefix}.{bi:04d}.bam")
+                shard = os.path.join(unsorted_dir, f"{name}.{bi:04d}")
                 if not os.path.exists(shard):
                     continue
-                rd = BamReader(shard)
-                if merged is None:
-                    h = rd.header
-                    merged = BamWriter(final, h.text, h.ref_names,
-                                       h.ref_lengths)
-                batch = rd.read_all()
-                for i in range(batch.n):
-                    merged.add_record(batch, i)
+                with open(shard) as f:
+                    for line in f:
+                        if line.startswith("#"):
+                            if bi == 0:
+                                out_lines.append(line)
+                        else:
+                            out_lines.append(line)
                 cleanup.append(shard)
-                if os.path.exists(shard + ".bai"):
-                    cleanup.append(shard + ".bai")
-            if merged is not None:
-                merged.close()
+            with open(os.path.join(unsorted_dir, name), "w") as f:
+                f.writelines(out_lines)
 
-    log_lines = []
-    for (_bi, lines, tr) in results:
-        log_lines.extend(lines)
-        tracker.merge_stats_from(tr)
-    if log is not None:
-        log(f"merged {len(bins)} phase-2 bin shards in "
-            f"{time.perf_counter() - shard_t0:.1f}s")
-    for bi in range(len(bins)):
-        cleanup.append(pkl_path(bi))
-    for path in cleanup:
-        if os.path.exists(path):
-            os.remove(path)
+        # merge per-bin evidence bams
+        if generate_evidence_bam:
+            from ..io.bam import BamReader
+            from ..io.bamwriter import BamWriter
+            for smp, bam_path in enumerate(bams):
+                prefix = os.path.splitext(os.path.basename(bam_path))[0]
+                final = os.path.join(evidence_dir,
+                                     f"evidence_{smp}.{prefix}.bam")
+                merged = None
+                for bi in range(len(bins)):
+                    shard = os.path.join(
+                        evidence_dir, f"evidence_{smp}.{prefix}.{bi:04d}.bam")
+                    if not os.path.exists(shard):
+                        continue
+                    rd = BamReader(shard)
+                    if merged is None:
+                        h = rd.header
+                        merged = BamWriter(final, h.text, h.ref_names,
+                                           h.ref_lengths)
+                    batch = rd.read_all()
+                    for i in range(batch.n):
+                        merged.add_record(batch, i)
+                    cleanup.append(shard)
+                    if os.path.exists(shard + ".bai"):
+                        cleanup.append(shard + ".bai")
+                if merged is not None:
+                    merged.close()
+
+        log_lines = []
+        for (_bi, lines, tr) in results:
+            log_lines.extend(lines)
+            tracker.merge_stats_from(tr)
+        if log is not None:
+            log(f"merged {len(bins)} phase-2 bin shards in "
+                f"{time.perf_counter() - shard_t0:.1f}s")
+        for bi in range(len(bins)):
+            cleanup.append(pkl_path(bi))
+        for path in cleanup:
+            if os.path.exists(path):
+                os.remove(path)
     return tracker, log_lines
 
 
@@ -1133,17 +1167,20 @@ def _estimate_sv_loci_parallel(bams, is_tumor, scanner, graph_opt,
         # results stream back as each group finishes
         from ..io.bam import BamReader
         from ..io.bgzf import set_worker_io_threads
+        worker_trace.enter_worker("phase1")
         fanout = min(n_jobs, len(groups))
         set_worker_io_threads(fanout)
         BamReader.set_worker_cache_budget(fanout)
         fasta = FastaReader(reference)
         for gi, regions in chunk:
-            nat, names, lengths, sc = estimate_sv_loci(
-                bams, is_tumor, scanner, graph_opt, regions, fasta,
-                chrom_depths=chrom_depths, as_native=True)
-            nat.save_npz(part_paths[gi], names, lengths, len(bams), sc,
-                         is_finalized=False)
-            nat.free()
+            with worker_trace.span("phase1.segment",
+                                   regions=[list(r) for r in regions]):
+                nat, names, lengths, sc = estimate_sv_loci(
+                    bams, is_tumor, scanner, graph_opt, regions, fasta,
+                    chrom_depths=chrom_depths, as_native=True)
+                nat.save_npz(part_paths[gi], names, lengths, len(bams), sc,
+                             is_finalized=False)
+                nat.free()
             queue.put((gi, part_paths[gi]))
 
     procs = []
@@ -1171,43 +1208,47 @@ def _estimate_sv_loci_parallel(bams, is_tumor, scanner, graph_opt,
     ci = 0
     live_chunks = 0
     n_total = len(results) + len(jobs)
-    while len(results) < n_total:
-        while ci < len(chunks) and live_chunks < n_jobs:
-            pr = ctx.Process(target=worker, args=(chunks[ci],))
-            pr.start()
-            procs.append(pr)
-            live_chunks += 1
-            ci += 1
-        gi, path = drain_fork_result(queue, procs)
-        results[gi] = path
-        if tasks is not None:
-            tasks.mark_done(task_names[gi], [path])
-        # a chunk frees its worker slot when its last group reports
-        done_chunks = sum(
-            1 for k in range(ci)
-            if all(g in results for g, _ in chunks[k]))
-        live_chunks = ci - done_chunks
-    for pr in procs:
-        pr.join()
+    with worker_trace.span("phase1.segments"):
+        while len(results) < n_total:
+            while ci < len(chunks) and live_chunks < n_jobs:
+                pr = ctx.Process(target=worker, args=(chunks[ci],))
+                pr.start()
+                procs.append(pr)
+                live_chunks += 1
+                ci += 1
+            gi, path = drain_fork_result(queue, procs)
+            results[gi] = path
+            if tasks is not None:
+                tasks.mark_done(task_names[gi], [path])
+            # a chunk frees its worker slot when its last group reports
+            done_chunks = sum(
+                1 for k in range(ci)
+                if all(g in results for g, _ in chunks[k]))
+            live_chunks = ci - done_chunks
+        for pr in procs:
+            pr.join()
 
     merge_t0 = time.perf_counter()
-    nat, meta = merge_saved_graphs_native(
-        [results[gi] for gi in sorted(results)])
+    with worker_trace.span("phase1.merge"):
+        nat, meta = merge_saved_graphs_native(
+            [results[gi] for gi in sorted(results)])
     if log is not None:
         log(f"merged {len(results)} graph parts in "
             f"{time.perf_counter() - merge_t0:.1f}s")
     fin_t0 = time.perf_counter()
-    if merge_tb is not None:
-        with merge_tb:
+    with worker_trace.span("phase1.finalize"):
+        if merge_tb is not None:
+            with merge_tb:
+                nat.finalize_native()
+        else:
             nat.finalize_native()
-    else:
-        nat.finalize_native()
     fin_s = time.perf_counter() - fin_t0
     save_t0 = time.perf_counter()
-    nat.save_npz(out_path, meta["chrom_names"], meta["chrom_lengths"],
-                 meta["sample_count"], meta["sample_counts"],
-                 is_finalized=True)
-    nat.free()
+    with worker_trace.span("phase1.save"):
+        nat.save_npz(out_path, meta["chrom_names"], meta["chrom_lengths"],
+                     meta["sample_count"], meta["sample_counts"],
+                     is_finalized=True)
+        nat.free()
     if log is not None:
         log(f"graph finalized in {fin_s:.1f}s, saved in "
             f"{time.perf_counter() - save_t0:.1f}s")

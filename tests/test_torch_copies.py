@@ -39,6 +39,9 @@ _CORE = ("the port builds its own native core under build/, named by a "
          "loads a half-written library (the original rebuilds "
          "native/libmanta_core.so in place when its mtime is older)")
 
+_SPANS = ("the port's run trace: an armed run's forked phase-0 worker "
+          "keeps a record and times its job as a span "
+          "(parallel/worker_trace)")
 _TPU_FIGURE = ("the port's comments state no time, rate or memory "
                "size measured on the JAX package's machines: the figure "
                "and its source document are dropped, the reasoning kept")
@@ -196,6 +199,16 @@ ALLOWED = {
         _NATIVE, [],
         ["    from ..native_core import load as load_native_core",
          "    load_native_core()"])],
+    "core/chromdepth.py": [
+        (_SPANS, [], ["            from ..parallel import worker_trace",
+                      '            worker_trace.enter_worker("phase0")']),
+        (_SPANS,
+         ["            queue.put((ji, read_chrom_depth(readers[path], tid, "
+          "size)))"],
+         ['            with worker_trace.span("phase0.bam", bam=path,',
+          "                                   chrom=jobs[ji][2]):",
+          "                depth = read_chrom_depth(readers[path], tid, size)",
+          "            queue.put((ji, depth))"])],
     "core/__init__.py": [(
         _DOC, [], ['"""Host-side core models and the phase-0 estimates."""'])],
     "align/__init__.py": [(

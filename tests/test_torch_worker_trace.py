@@ -108,6 +108,13 @@ def test_armed_cpu_run_writes_a_trace_per_phase2_worker(armed):
     for t in traces:
         assert t["finished"] and t["touched"]
         assert t["events"] is None and t["cuda_startup_s"] is None
+        # the worker's moments are spans now: its life, its stages, its
+        # seams; on the CPU no context and no trace
+        assert t["role"] == "phase2" and "marks" not in t
+        names = {s[0] for s in t["spans"]}
+        assert t["spans"][0][0] == "worker"
+        assert {"worker.setup", "worker.write", "k3.route"} <= names
+        assert not names & {"cuda.context", "trace.start", "trace.stop"}
     exit_lines = parse_lines(err)
     # each worker ran exact split scans and printed its line
     assert err.count("split-scan pid=") == 2
@@ -183,6 +190,14 @@ def test_merge_of_two_workers_traces():
     before phase 2 is counted and left out."""
     a = {"pid": 11, "bin": 0, "finished": True, "touched": True,
          "cuda_startup_s": 0.5, "clock": "wall",
+         # the worker's life (what were its marks) as its spans
+         "spans": [["worker", _ns(-3000), _ns(9000), None, {"bin": 0}],
+                   ["k1.dispatch", _ns(50), _ns(350), 0, {}],
+                   ["cuda.context", _ns(60), _ns(70), 1, {}],
+                   ["trace.start", _ns(70), _ns(90), 1, {}],
+                   ["k3.route", _ns(395), _ns(445), 0, {"pairs": 2}],
+                   ["worker.write", _ns(500), _ns(600), 0, {}],
+                   ["trace.stop", _ns(8000), _ns(8900), 0, {}]],
          "counts": _counts(k1=1, k3=1, k1_wall=0.002, k3_wall=0.001,
                            useful=(100, 10)),
          "events": [[H2D, _ns(-5000), 5 * US],     # phase 1: outside
@@ -209,6 +224,14 @@ def test_merge_of_two_workers_traces():
         "jump_score": 1, "jump_score_bounded": 0, "split_score": 2}
     assert reading["counts"]["work"]["split_score"]["useful"] == 40
     assert reading["counts"]["wall"]["split_score"] == pytest.approx(0.002)
+    # the moments of a's life after phase 2's start, read from its spans
+    # (b has none); the trace's start and stop as spans of their own
+    marks = {k: v["median"] for k, v in reading["marks_s"].items()}
+    assert marks == pytest.approx({
+        "entered": -0.003, "exit": 0.009, "first_device_call": 0.00005,
+        "context_made": 0.00007, "trace_started": 0.00009,
+        "bin_finished": 0.0006, "trace_stopped": 0.0089,
+        "trace_start_s": 0.00002, "trace_stop_s": 0.0009})
     starts = [e[1] for e in reading["events"]]
     assert starts == sorted(starts) and starts[0] == pytest.approx(100.0)
     j, _bounded, s, phase2 = dt.workflow_records(reading, 0.01, "card",
