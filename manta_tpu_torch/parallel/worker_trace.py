@@ -17,7 +17,8 @@ Spans, by the process that records them (``SPANS``):
     workers
     phase-2 workers       worker (attribute: bin), worker.setup; for each
                           edge of a chunk chunk.find, chunk.assemble and
-                          chunk.score, for the chunk chunk.contig_align;
+                          chunk.score (attribute: samples), for the chunk
+                          chunk.contig_align;
                           worker.write
     the device seams      k1.dispatch (each contig-scorer call), k3.route
                           (each split-router call; attribute: pairs);
@@ -46,8 +47,9 @@ or phase-1 worker at exit; a phase-2 worker writes
   start ns, duration ns] on the same wall clock; None where it scored on
   the CPU or the run was armed with ``device=False``;
 - ``counts``: its wrappers' launches, each kernel's work
-  (``KERNEL_WORK``) and the calls and walls of the seams that reach
-  them (the contig dispatcher, the split router);
+  (``KERNEL_WORK``), the calls and walls of the seams that reach
+  them (the contig dispatcher, the split router), and the scorer's
+  junctions, samples, fragments and times (``joint``);
 - ``cuda_startup_s``: the host seconds of its first CUDA call, which
   makes its CUDA context (the ``cuda.context`` span);
 - ``clock``: the clock the profiler's timestamps came on, and
@@ -260,20 +262,28 @@ def zero_counts() -> dict:
             "work": {k: {"useful": 0, "padded": 0, "bytes": 0}
                      for k in KERNELS},
             "calls": dict.fromkeys(KERNELS, 0),
-            "wall": dict.fromkeys(KERNELS, 0.0)}
+            "wall": dict.fromkeys(KERNELS, 0.0),
+            "joint": {"junctions": 0, "sample_junctions": 0,
+                      "fragments": [], "evidence_ns": 0, "genotype_ns": 0}}
 
 
 def counts() -> dict:
     """This process's host-side counts: each wrapper's launches, each
-    kernel's work (``KERNEL_WORK``), and the calls and walls of the
-    seams that reach it (the contig dispatcher; the split router's exact
-    scans and mxu fallbacks), from the modules it imported: zeros for
-    those it never imported."""
+    kernel's work (``KERNEL_WORK``), the calls and walls of the seams
+    that reach it (the contig dispatcher; the split router's exact scans
+    and mxu fallbacks), and under ``joint`` the scorer's
+    ``JOINT_STATS`` (junctions, sample-junctions, fragments per sample,
+    ns in evidence and in the score models), from the modules it
+    imported: zeros for those it never imported."""
     cj = sys.modules.get("manta_tpu_torch.align.cuda_jumpscore")
     cs = sys.modules.get("manta_tpu_torch.align.cuda_splitscore")
     dj = sys.modules.get("manta_tpu_torch.align.device_jumpscore")
     ds = sys.modules.get("manta_tpu_torch.scoring.device_scan")
+    sc = sys.modules.get("manta_tpu_torch.scoring.scorer")
     out = zero_counts()
+    if sc is not None:
+        out["joint"] = dict(sc.JOINT_STATS,
+                            fragments=list(sc.JOINT_STATS["fragments"]))
     for mod in (cj, cs):
         if mod is not None:
             out["launches"].update(mod.KERNEL_LAUNCHES)

@@ -12,6 +12,7 @@ tumor-only filters.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -56,6 +57,23 @@ _DGT_ALT_FRACTION_TANDUP = np.array([0.0, 0.2, 1.0 / 3.0])
 _DUP_DEPTH_RATIO = (1.0, 1.5, 2.0)
 # SOMATIC_GT: REF, HET, HOM, SOM, NOISE
 SGT_REF, SGT_HET, SGT_HOM, SGT_SOM, SGT_NOISE, SGT_SIZE = 0, 1, 2, 3, 4, 5
+# what score_sv did in this process, for the run trace
+# (parallel/worker_trace.counts, key "joint"): junctions scored, their
+# samples summed (sample-junctions), the fragments in each sample's
+# banks, and the ns spent gathering evidence and in the score models
+JOINT_STATS = {"junctions": 0, "sample_junctions": 0, "fragments": [],
+               "evidence_ns": 0, "genotype_ns": 0}
+
+
+def _count_junction(tracks, evidence_ns: int, genotype_ns: int):
+    frags = JOINT_STATS["fragments"]
+    frags.extend([0] * (len(tracks) - len(frags)))
+    for i, track in enumerate(tracks):
+        frags[i] += track.n
+    JOINT_STATS["junctions"] += 1
+    JOINT_STATS["sample_junctions"] += len(tracks)
+    JOINT_STATS["evidence_ns"] += evidence_ns
+    JOINT_STATS["genotype_ns"] += genotype_ns
 
 
 def log_sum(a: float, b: float) -> float:
@@ -1076,15 +1094,18 @@ class SVScorer:
             unfiltered += 1
             sv = mj_junctions[ji]
             sv_id = sv_ids[ji].local_id if sv_ids is not None else None
+            t0 = time.perf_counter_ns()
             base, tracks = self.get_sv_supporting_evidence(
                 svfinder_groups, mj_assembly_data[ji], is_tumor_only, sv,
                 sv_id=sv_id, support=support)
+            t1 = time.perf_counter_ns()
             model_infos[ji].base = base
             junction_evidence[ji] = tracks
             junction_weight[ji] = get_spanning_pair_weight(sv)
             junction_data = [(sv, tracks, base, junction_weight[ji])]
             self.compute_all_score_models(is_somatic, is_tumor_only,
                                           junction_data, model_infos[ji])
+            _count_junction(tracks, t1 - t0, time.perf_counter_ns() - t1)
 
         joint_info = ModelScoreInfo()
         is_mj_event = False
@@ -1097,6 +1118,8 @@ class SVScorer:
                 junction_data.append(
                     (mj_junctions[ji], junction_evidence[ji],
                      model_infos[ji].base, junction_weight[ji]))
+            t0 = time.perf_counter_ns()
             self.compute_all_score_models(is_somatic, is_tumor_only,
                                           junction_data, joint_info)
+            JOINT_STATS["genotype_ns"] += time.perf_counter_ns() - t0
         return model_infos, joint_info, is_mj_event

@@ -1047,8 +1047,11 @@ def profile_workflow(run, device) -> dict:
     after = counts()
 
     def minus(a, b):
-        return ({k: minus(a[k], b[k]) for k in a} if isinstance(a, dict)
-                else a - b)
+        if isinstance(a, dict):
+            return {k: minus(a[k], b[k]) for k in a}
+        if isinstance(a, list):         # per sample; b may list fewer
+            return [x - (b[i] if i < len(b) else 0) for i, x in enumerate(a)]
+        return a - b
     return {"counts": minus(after, before), "events": events}
 
 
@@ -1254,6 +1257,11 @@ def merge_worker_traces(traces: list[dict],
                 if isinstance(v, dict):
                     for k, n in v.items():
                         counts[key][kernel][k] += n
+                elif isinstance(v, list):       # per sample
+                    acc = counts[key][kernel]
+                    acc.extend([0] * (len(v) - len(acc)))
+                    for i, n in enumerate(v):
+                        acc[i] += n
                 else:
                     counts[key][kernel] += v
     on_card = any(t["events"] is not None for t in done)

@@ -697,7 +697,8 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
                 for (edge, svs, cand_tb, prep_tb, st) in prepared:
                     li, n1, n2 = edge
                     fin_tb = TimeBlock()
-                    with worker_trace.span("chunk.score"), fin_tb:
+                    with worker_trace.span("chunk.score",
+                                           samples=len(bams)), fin_tb:
                         processor.finish_candidates(st)
                         if evidence_writer is not None and \
                                 st.edge_support is not None:

@@ -42,6 +42,9 @@ _CORE = ("the port builds its own native core under build/, named by a "
 _SPANS = ("the port's run trace: an armed run's forked phase-0 worker "
           "keeps a record and times its job as a span "
           "(parallel/worker_trace)")
+_JOINT = ("the port's run trace: the scorer counts its junctions, "
+          "their samples and fragments and times evidence and the score "
+          "models (JOINT_STATS, read by parallel/worker_trace.counts)")
 _TPU_FIGURE = ("the port's comments state no time, rate or memory "
                "size measured on the JAX package's machines: the figure "
                "and its source document are dropped, the reasoning kept")
@@ -134,6 +137,36 @@ ALLOWED = {
           '                f"unknown jump_score_backend '
           '{jump_score_backend!r}")'])],
     "scoring/scorer.py": [
+        (_JOINT, [], ["import time"]),
+        (_JOINT, [],
+         ["# what score_sv did in this process, for the run trace",
+          '# (parallel/worker_trace.counts, key "joint"): junctions '
+          "scored, their",
+          "# samples summed (sample-junctions), the fragments in each "
+          "sample's",
+          "# banks, and the ns spent gathering evidence and in the score "
+          "models",
+          'JOINT_STATS = {"junctions": 0, "sample_junctions": 0, '
+          '"fragments": [],',
+          '               "evidence_ns": 0, "genotype_ns": 0}',
+          "", "",
+          "def _count_junction(tracks, evidence_ns: int, genotype_ns: "
+          "int):",
+          '    frags = JOINT_STATS["fragments"]',
+          "    frags.extend([0] * (len(tracks) - len(frags)))",
+          "    for i, track in enumerate(tracks):",
+          "        frags[i] += track.n",
+          '    JOINT_STATS["junctions"] += 1',
+          '    JOINT_STATS["sample_junctions"] += len(tracks)',
+          '    JOINT_STATS["evidence_ns"] += evidence_ns',
+          '    JOINT_STATS["genotype_ns"] += genotype_ns']),
+        (_JOINT, [], ["            t0 = time.perf_counter_ns()"]),
+        (_JOINT, [], ["            t1 = time.perf_counter_ns()"]),
+        (_JOINT, [], ["            _count_junction(tracks, t1 - t0, "
+                      "time.perf_counter_ns() - t1)"]),
+        (_JOINT, [], ["            t0 = time.perf_counter_ns()"]),
+        (_JOINT, [], ['            JOINT_STATS["genotype_ns"] += '
+                      "time.perf_counter_ns() - t0"]),
         (_DEVICE,
          ["                 use_device_scoring: bool | str = False):"],
          ["                 use_device_scoring: bool | str = False,",

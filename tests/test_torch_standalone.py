@@ -264,13 +264,23 @@ def _public(module):
     return set(names)
 
 
+# public names a copy has beyond its counterpart's, each with its reason
+EXTRA_PUBLIC = {
+    # the port's run trace reads the scorer's counter
+    # (parallel/worker_trace.counts, key "joint")
+    "scoring.scorer": {"JOINT_STATS"},
+}
+
+
 @pytest.mark.parametrize("name", COPIED)
 def test_copy_has_the_public_names_of_its_counterpart(name):
     """A missed, cut or stale copy shows here; and no function or class
     of a copy is the JAX package's own."""
     ours = importlib.import_module(f"manta_tpu_torch.{name}")
     theirs = importlib.import_module(f"manta_tpu.{name}")
-    assert _public(ours) == _public(theirs)
+    extra = EXTRA_PUBLIC.get(name, set())
+    assert extra <= _public(ours)
+    assert _public(ours) - extra == _public(theirs)
     assert ours.__file__ != theirs.__file__
     for attr in _public(ours):
         obj = getattr(ours, attr)
