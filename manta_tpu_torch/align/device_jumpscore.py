@@ -554,14 +554,17 @@ def pad_jobs(jobs, rows: int):
     return q, ql, r1, r1l, r2, r2l
 
 
-def count_work(jobs, shape, kernel: str = "jump_score") -> None:
+def count_work(lengths, shape, kernel: str = "jump_score") -> None:
     """Add one launch's work to ``KERNEL_WORK[kernel]``: the jobs'
-    useful cells, sum of len(query) x (len(ref1) + len(ref2)), and the
-    padded launch ``shape`` (B, nq, nr1, nr2): its cells, and its bytes
-    (int32 query and references, three lengths in, a score out)."""
+    useful cells, sum of len(query) x (len(ref1) + len(ref2)) over
+    ``lengths`` (the jobs' query, ref1 and ref2 lengths, three int
+    arrays), and the padded launch ``shape`` (B, nq, nr1, nr2): its
+    cells, and its bytes (int32 query and references, three lengths in,
+    a score out)."""
     B, nq, nr1, nr2 = shape
+    ql, r1l, r2l = (np.asarray(n, np.int64) for n in lengths)
     work = KERNEL_WORK[kernel]
-    work["useful"] += sum(len(q) * (len(r1) + len(r2)) for q, r1, r2 in jobs)
+    work["useful"] += int((ql * (r1l + r2l)).sum())
     work["padded"] += B * nq * (nr1 + nr2)
     work["bytes"] += 4 * B * (nq + nr1 + nr2 + 4)
 
@@ -573,16 +576,18 @@ DISPATCH_STATS = {"calls": 0, "jobs": 0, "rows": 0, "wall": 0.0,
                   "first_wall": 0.0}
 # calls by padded bucket shape (B, nq, nr1, nr2)
 DISPATCH_BUCKETS: dict[tuple[int, int, int, int], int] = {}
-_REPORT_REGISTERED = False
+# the process that registered the report (a forked child registers its
+# own)
+_REPORT_PID = None
 
 
 def _register_dispatch_report():
-    global _REPORT_REGISTERED
-    if _REPORT_REGISTERED:
-        return
-    _REPORT_REGISTERED = True
     import os as _os
     import sys as _sys
+    global _REPORT_PID
+    if _REPORT_PID == _os.getpid():
+        return
+    _REPORT_PID = _os.getpid()
 
     from ..parallel.forkpool import at_process_exit
 
@@ -609,7 +614,11 @@ def make_bucketed_scorer(scores, jump_score: int, device):
     reference's tiers and pad sentinels) and returns the exact int32 max
     jump-alignment scores as numpy, bit-identical to the host traceback
     aligner. On a CUDA device every batch goes through the hand-written
-    kernel; on the CPU through the plain form."""
+    kernel; on the CPU through the plain form. Where the run has a
+    device process for ``device`` (``parallel.device_proc``), the padded
+    arrays go to it and it scores them with ``score_padded``; this
+    process then makes no CUDA call."""
+    from ..parallel import device_proc
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"no jump-score path for device {device}")
@@ -621,23 +630,39 @@ def make_bucketed_scorer(scores, jump_score: int, device):
         if B == 0:
             return np.zeros(0, np.int32)
         with worker_trace.span("k1.dispatch"):
-            worker_trace.device_call(device)
+            remote = device_proc.client_for(device)
+            if remote is None:
+                worker_trace.device_call(device)
             _t0 = _time.perf_counter()
             Bp = _bucket(B, tiers=(8, 16, 32, 64, 128, 256))
-            t = from_reference_inputs(*pad_jobs(jobs, Bp), device)
-            res = _score(*t, scores, jump_score).cpu().numpy()[:B]
-            raise_on_kernel_error()
-            dt = _time.perf_counter() - _t0
-        s = DISPATCH_STATS
-        if s["calls"] == 0:
-            s["first_wall"] = dt
-        s["calls"] += 1
-        s["jobs"] += B
-        s["rows"] += Bp
-        s["wall"] += dt
-        shape = (Bp, *(int(t[i].shape[1]) for i in (0, 2, 4)))
-        DISPATCH_BUCKETS[shape] = DISPATCH_BUCKETS.get(shape, 0) + 1
-        count_work(jobs, shape)
-        return res
+            arrays = pad_jobs(jobs, Bp)
+            if remote is not None:
+                return remote.k1(arrays, B, scores, jump_score)
+            return score_padded(arrays, B, scores, jump_score, device, _t0)
 
     return scorer
+
+
+def score_padded(arrays, B: int, scores, jump_score: int, device, t0: float):
+    """The scores of the first ``B`` rows of ``pad_jobs``'s ``arrays``
+    on ``device`` (int32 numpy (B,)), with the dispatch accounting:
+    ``DISPATCH_STATS`` from ``t0`` (the call's start, ``perf_counter``),
+    ``DISPATCH_BUCKETS`` and ``KERNEL_WORK``. Run by the process that
+    owns the device: the scorer's own, or the run's device process."""
+    import time as _time
+    t = from_reference_inputs(*arrays, device)
+    res = _score(*t, scores, jump_score).cpu().numpy()[:B]
+    raise_on_kernel_error()
+    dt = _time.perf_counter() - t0
+    Bp = len(arrays[0])
+    s = DISPATCH_STATS
+    if s["calls"] == 0:
+        s["first_wall"] = dt
+    s["calls"] += 1
+    s["jobs"] += B
+    s["rows"] += Bp
+    s["wall"] += dt
+    shape = (Bp, *(int(arrays[i].shape[1]) for i in (0, 2, 4)))
+    DISPATCH_BUCKETS[shape] = DISPATCH_BUCKETS.get(shape, 0) + 1
+    count_work([arrays[i][:B] for i in (1, 3, 5)], shape)
+    return res

@@ -5,12 +5,17 @@ Spans, by the process that records them (``SPANS``):
 
     process               spans
     ------------------    ----------------------------------------------
-    workflow process      workflow; phase0.fragstats, phase0.depth;
-    (workflow/run.py)     phase1.segments (the fan-out, from the first
+    workflow process      workflow; device_proc.start (the fork of
+    (workflow/run.py)     the run's device process, where it has one);
+                          phase0.fragstats, phase0.depth;
+                          phase1.segments (the fan-out, from the first
                           fork to the last result), phase1.merge,
                           phase1.finalize, phase1.save, phase1.load;
-                          phase2 (partition, forks, drain),
-                          phase2.merge_shards; final.sort_index
+                          phase2 (device_proc.ready, the wait for the
+                          device process, before the partition, forks
+                          and drain), phase2.merge_shards;
+                          phase2.stats (after the phase's last log
+                          stamp); device_proc.stop; final.sort_index
     phase-0 stats         phase0.bam (attributes: bam; chrom for a depth
     workers               job)
     phase-1 segment       phase1.segment (attribute: the group's regions)
@@ -24,6 +29,10 @@ Spans, by the process that records them (``SPANS``):
                           (each split-router call; attribute: pairs);
                           cuda.context and trace.start inside the first
                           of them; trace.stop at exit
+    the run's device      cuda.context at its start; trace.start when
+    process               phase 2 begins; device_proc.k1, device_proc.k3
+    (parallel/            (each request it serves); trace.stop at exit
+    device_proc)
 
 At -j 1 phase 2 runs in the workflow process: its stage spans nest under
 ``phase2``.
@@ -31,7 +40,8 @@ At -j 1 phase 2 runs in the workflow process: its stage spans nest under
 ``arm(directory)`` before ``run_workflow`` arms the run: the process that
 calls ``run_workflow`` becomes the run's workflow process, and each
 phase-0, phase-1 and phase-2 worker it forks keeps a record of its own
-(``enter_worker``, ``enter_phase2_worker``). A record holds
+(``enter_worker``, ``enter_phase2_worker``; the run's device process,
+``enter_device_process``). A record holds
 ``role``, ``pid``, ``run`` (the workflow process's pid and start ns:
 the identifier every process of the run shares), ``spans`` as [name,
 start ns, end ns, index of the enclosing span of the same process or
@@ -40,8 +50,8 @@ None, attributes], both times from ``time.time_ns()``, and
 stood at the fork (an open span's end is None), so that any one record
 places its process in the run. The workflow process writes
 ``directory/trace.<pid>.json`` when ``run_workflow`` returns, a phase-0
-or phase-1 worker at exit; a phase-2 worker writes
-``directory/device_trace.<pid>.json`` at exit, with besides:
+or phase-1 worker at exit; a phase-2 worker and the device process
+write ``directory/device_trace.<pid>.json`` at exit, with besides:
 
 - ``events``: its device events (kernels, copies, memsets) as [name,
   start ns, duration ns] on the same wall clock; None where it scored on
@@ -49,7 +59,8 @@ or phase-1 worker at exit; a phase-2 worker writes
 - ``counts``: its wrappers' launches, each kernel's work
   (``KERNEL_WORK``), the calls and walls of the seams that reach
   them (the contig dispatcher, the split router), and the scorer's
-  junctions, samples, fragments and times (``joint``);
+  junctions, samples, fragments and times (``joint``), and the device
+  process's route (``device_proc``);
 - ``cuda_startup_s``: the host seconds of its first CUDA call, which
   makes its CUDA context (the ``cuda.context`` span);
 - ``clock``: the clock the profiler's timestamps came on, and
@@ -59,7 +70,11 @@ A phase-2 worker starts its trace at its first device call
 (``device_call``): it makes its CUDA context first and times it, then
 starts a ``torch.profiler`` window of CUDA activity only, so a worker
 that never reaches the device never makes a context, and the trace costs
-no host work a launch. ``arm(directory, device=False)`` records the
+no host work a launch. Where the run has a device process, it alone
+makes a context, at its start, and traces the card, from phase 2's
+start; the phase-2 workers forward their seam calls to it and make
+none.
+``arm(directory, device=False)`` records the
 spans only: no profiler, and no context made apart from the first
 seam's call (no ``cuda.context`` or ``trace.*`` span, no
 ``cuda_startup_s``). Unarmed, ``span`` returns one shared no-op
@@ -77,16 +92,19 @@ import time
 
 # the spans each process records, by its role
 SPANS = {
-    "workflow": ("workflow", "phase0.fragstats", "phase0.depth",
-                 "phase1.segments", "phase1.merge", "phase1.finalize",
-                 "phase1.save", "phase1.load", "phase2",
-                 "phase2.merge_shards", "final.sort_index"),
+    "workflow": ("workflow", "device_proc.start", "phase0.fragstats",
+                 "phase0.depth", "phase1.segments", "phase1.merge",
+                 "phase1.finalize", "phase1.save", "phase1.load", "phase2",
+                 "device_proc.ready", "phase2.merge_shards", "phase2.stats",
+                 "device_proc.stop", "final.sort_index"),
     "phase0": ("phase0.bam",),
     "phase1": ("phase1.segment",),
     "phase2": ("worker", "worker.setup", "chunk.find", "chunk.assemble",
                "chunk.contig_align", "chunk.score", "worker.write"),
     "device": ("k1.dispatch", "k3.route", "cuda.context", "trace.start",
                "trace.stop"),
+    "device_proc": ("cuda.context", "trace.start", "device_proc.k1",
+                    "device_proc.k3", "trace.stop"),
 }
 # the directory armed processes write into (None: unarmed), and whether
 # phase-2 workers trace the device
@@ -218,10 +236,49 @@ def enter_phase2_worker(bin_index: int) -> None:
     at_process_exit(_write)
 
 
+def enter_device_process(device) -> None:
+    """Called first in the run's device process (``parallel.
+    device_proc``): makes its CUDA context at once. Armed, this process
+    keeps a record (role ``device_proc``) and writes
+    ``device_trace.<pid>.json`` at exit; armed with the profiler, the
+    context is made as a phase-2 worker makes its own (the
+    ``cuda.context`` span, ``cuda_startup_s``) and the profiler waits
+    for ``start_device_trace``; otherwise the context is made untimed."""
+    global _REC, _WORKER
+    import torch
+    device = torch.device(device)
+    if _ARMED["dir"] is not None:
+        from .forkpool import at_process_exit
+        _REC = _new_record("device_proc", _REC)
+        _WORKER = {"bin": None, "finished": None, "cuda_startup_s": None,
+                   "device": _ARMED["device"], "profiler": None,
+                   "touched": False, "span": None}
+        at_process_exit(_write)
+    if device.type != "cuda":
+        return
+    if _WORKER is not None and _WORKER["device"]:
+        _make_context(device)
+    else:
+        torch.empty(1, device=device)
+        torch.cuda.synchronize(device)
+
+
+def start_device_trace() -> None:
+    """Called in the run's device process as phase 2 begins, before the
+    workers are forked: armed with the profiler, starts it (the
+    ``trace.start`` span), so that the trace's own start, seconds long,
+    runs before the first request and beside no phase's work."""
+    w = _WORKER
+    if w is not None and w["cuda_startup_s"] is not None \
+            and w["profiler"] is None:
+        _start_profiler()
+
+
 def bin_finished() -> None:
-    """Called once the worker's bin is written: only finished workers
-    count in the merge, with their counts as they stand here (the exit
-    lines' report, which runs at exit too, zeroes the dispatcher's)."""
+    """Called once the worker's bin is written (in the device process: at
+    its stop): only finished workers count in the merge, with their
+    counts as they stand here (the exit lines' report, which runs at
+    exit too, zeroes the dispatcher's)."""
     if _WORKER is not None:
         _WORKER["finished"] = counts()
 
@@ -240,11 +297,22 @@ def device_call(device) -> None:
     device = torch.device(device)
     if device.type != "cuda" or not _WORKER["device"]:
         return
+    _make_context(device)
+    _start_profiler()
+
+
+def _make_context(device) -> None:
+    """Make this process's CUDA context, timed (``cuda_startup_s``)."""
+    import torch
     with span("cuda.context"):
         t0 = time.perf_counter()
         torch.empty(1, device=device)
         torch.cuda.synchronize(device)
         _WORKER["cuda_startup_s"] = time.perf_counter() - t0
+
+
+def _start_profiler() -> None:
+    """Start a ``torch.profiler`` window of CUDA activity only."""
     with span("trace.start"):
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CUDA])
@@ -264,7 +332,11 @@ def zero_counts() -> dict:
             "calls": dict.fromkeys(KERNELS, 0),
             "wall": dict.fromkeys(KERNELS, 0.0),
             "joint": {"junctions": 0, "sample_junctions": 0,
-                      "fragments": [], "evidence_ns": 0, "genotype_ns": 0}}
+                      "fragments": [], "evidence_ns": 0, "genotype_ns": 0},
+            "device_proc": {"contexts": 0, "k1_calls": 0, "k3_calls": 0,
+                            "bytes_in": 0, "bytes_out": 0,
+                            "ready_wait_s": 0.0, "round_trip_s": 0.0,
+                            "service_s": 0.0}}
 
 
 def counts() -> dict:
@@ -273,14 +345,19 @@ def counts() -> dict:
     that reach it (the contig dispatcher; the split router's exact scans
     and mxu fallbacks), and under ``joint`` the scorer's
     ``JOINT_STATS`` (junctions, sample-junctions, fragments per sample,
-    ns in evidence and in the score models), from the modules it
+    ns in evidence and in the score models), and under ``device_proc``
+    the run's device process's route (``DEVICE_PROC``: contexts made,
+    calls forwarded, bytes each way, seconds waited), from the modules it
     imported: zeros for those it never imported."""
     cj = sys.modules.get("manta_tpu_torch.align.cuda_jumpscore")
     cs = sys.modules.get("manta_tpu_torch.align.cuda_splitscore")
     dj = sys.modules.get("manta_tpu_torch.align.device_jumpscore")
     ds = sys.modules.get("manta_tpu_torch.scoring.device_scan")
     sc = sys.modules.get("manta_tpu_torch.scoring.scorer")
+    dp = sys.modules.get("manta_tpu_torch.parallel.device_proc")
     out = zero_counts()
+    if dp is not None:
+        out["device_proc"] = dict(dp.DEVICE_PROC)
     if sc is not None:
         out["joint"] = dict(sc.JOINT_STATS,
                             fragments=list(sc.JOINT_STATS["fragments"]))
@@ -353,7 +430,8 @@ def _write() -> None:
             torch.cuda.synchronize()
             prof.stop()
             events, clock = _device_events(prof, wall_ns, mono_ns)
-    w["span"].__exit__(None, None, None)
+    if w["span"] is not None:
+        w["span"].__exit__(None, None, None)
     _write_record(rec, f"device_trace.{rec['pid']}.json", bin=w["bin"],
                   finished=bool(w["finished"]), touched=w["touched"],
                   cuda_startup_s=w["cuda_startup_s"], clock=clock,

@@ -50,16 +50,18 @@ SCAN_STATS = {"exact": 0, "mxu": 0, "fallback": 0, "rows": 0, "wall": 0.0}
 SCAN_TIERS: dict[tuple[int, int], list[int]] = {}
 # copies the exact route asked for on a CUDA device: one each way a call
 EXACT_COPIES = {"h2d": 0, "d2h": 0}
-_REPORT_REGISTERED = False
+# the process that registered the report (a forked child registers its
+# own)
+_REPORT_PID = None
 
 
 def _register_scan_report():
-    global _REPORT_REGISTERED
-    if _REPORT_REGISTERED:
-        return
-    _REPORT_REGISTERED = True
     import os
     import sys
+    global _REPORT_PID
+    if _REPORT_PID == os.getpid():
+        return
+    _REPORT_PID = os.getpid()
 
     from ..align.cuda_splitscore import KERNEL_LAUNCHES
     from ..parallel.forkpool import at_process_exit
@@ -95,17 +97,16 @@ def useful_terms(read_len, bp_beg, bp_end, target_len) -> int:
     return int((np.clip(stop - start + 1, 0, None) * rl).sum())
 
 
-def count_work(read_len, bp_ranges, target_len, Lp: int, Tp: int) -> None:
+def count_work(read_len, bp_beg, bp_end, target_len, Lp: int,
+               Tp: int) -> None:
     """Add one exact scan's work to ``KERNEL_WORK["split_score"]``: its
     useful terms, the terms of its tiers (n x t x Tp x Lp), and its
     bytes (reads and quals (n, Lp), targets (t, Tp), four int32 vectors,
     both 71-entry float32 LUTs in; a float32 and an int32 a pair out)."""
     n, t = len(read_len), len(target_len)
-    beg = np.array([b for b, _e in bp_ranges], np.int64)
-    end = np.array([e for _b, e in bp_ranges], np.int64)
     work = KERNEL_WORK["split_score"]
-    work["useful"] += useful_terms(np.asarray(read_len)[:, None], beg, end,
-                                   target_len)
+    work["useful"] += useful_terms(np.asarray(read_len)[:, None], bp_beg,
+                                   bp_end, target_len)
     work["padded"] += n * t * Tp * Lp
     work["bytes"] += (2 * n * Lp + t * Tp + 4 * (n + 3 * t) + 2 * 71 * 4
                       + 8 * n * t)
@@ -177,19 +178,58 @@ def stage_exact(reads, quals, read_lens, targets, bp_ranges, Tp):
     return freads, fquals, tgts, bp_beg, bp_end, np.repeat(read_lens, t), tl
 
 
+def staged_bytes(n: int, t: int, Lp: int, Tp: int) -> int:
+    """The bytes of one call's inputs in the factored layout: reads and
+    quals (n, Lp), targets (t, Tp), then the int32 vectors read_len (n,),
+    bp_beg, bp_end, target_len (t,). Lp and Tp are multiples of 256, so
+    the vectors start 4-byte aligned."""
+    return 2 * n * Lp + t * Tp + 4 * (n + 3 * t)
+
+
+def staged_views(flat, n: int, t: int, Lp: int, Tp: int):
+    """(reads, quals, read_len, targets, bp_beg, bp_end, target_len) as
+    views of ``flat``, a numpy uint8 array or a torch uint8 tensor that
+    holds a call's inputs in the factored layout."""
+    o1, o2 = n * Lp, 2 * n * Lp
+    o3 = o2 + t * Tp
+    ints = flat[o3:o3 + 4 * (n + 3 * t)].view(
+        np.int32 if isinstance(flat, np.ndarray) else torch.int32)
+    return (flat[:o1].reshape(n, Lp), flat[o1:o2].reshape(n, Lp), ints[:n],
+            flat[o2:o3].reshape(t, Tp), ints[n:n + t], ints[n + t:n + 2 * t],
+            ints[n + 2 * t:])
+
+
+def fill_staged(flat, batch, read_idx, targets, bp_ranges, Lp: int,
+                Tp: int) -> None:
+    """Write one call's inputs into ``flat`` (numpy uint8, at least
+    ``staged_bytes`` long) in the factored layout: the selected batch
+    reads and quals 0xFF and 0 padded to Lp, the targets N-padded to
+    Tp."""
+    n, t = len(read_idx), len(targets)
+    reads, quals, read_len, tgts, bp_beg, bp_end, target_len = \
+        staged_views(flat, n, t, Lp, Tp)
+    read_len[:] = stage_reads(batch, read_idx, (reads, quals))[2]
+    tgts[...] = ord("N")
+    for k, tg in enumerate(targets):
+        tgts[k, :len(tg)] = tg
+        bp_beg[k] = bp_ranges[k][0]
+        bp_end[k] = bp_ranges[k][1]
+        target_len[k] = len(tg)
+
+
 class ExactStaging:
-    """One host buffer that holds every input of an exact scan call in
-    the factored layout, reads, quals (n, Lp), targets (t, Tp), then the
-    int32 vectors read_len (n,), bp_beg, bp_end, target_len (t,), so
-    that one copy takes them to the device. Pinned when the device is
-    CUDA; grown when a call needs more and kept between calls (a call
-    ends with the results on the host, so the buffer is free again)."""
+    """One host buffer that holds every input of a scan call in the
+    factored layout (``staged_views``), so that one copy takes them to
+    the device. Pinned when the device is CUDA; grown when a call needs
+    more and kept between calls (a call ends with the results on the
+    host, so the buffer is free again)."""
 
     def __init__(self, device):
         self.device = device
         self._buf = None
 
-    def _host(self, n_bytes: int):
+    def host(self, n_bytes: int):
+        """The buffer's first ``n_bytes``, as a CPU uint8 tensor."""
         if self._buf is None or self._buf.numel() < n_bytes:
             self._buf = torch.empty(
                 max(n_bytes, 1 << 16), dtype=torch.uint8,
@@ -202,37 +242,28 @@ class ExactStaging:
         target_len)."""
         n, t = len(read_idx), len(targets)
         Lp = read_tier(batch, read_idx)
-        sizes = (n * Lp, n * Lp, t * Tp)            # multiples of 256
-        n_ints = n + 3 * t
-        host = self._host(sum(sizes) + 4 * n_ints)
-        flat = host.numpy()
-        o1, o2, o3 = np.cumsum(sizes)
-        reads = flat[:o1].reshape(n, Lp)
-        quals = flat[o1:o2].reshape(n, Lp)
-        tgts = flat[o2:o3].reshape(t, Tp)
-        ints = flat[o3:].view(np.int32)
-        _r, _q, read_lens = stage_reads(batch, read_idx, (reads, quals))
-        ints[:n] = read_lens
-        tgts[...] = ord("N")
-        for k, tg in enumerate(targets):
-            tgts[k, :len(tg)] = tg
-            ints[n + k] = bp_ranges[k][0]
-            ints[n + t + k] = bp_ranges[k][1]
-            ints[n + 2 * t + k] = len(tg)
+        host = self.host(staged_bytes(n, t, Lp, Tp))
+        fill_staged(host.numpy(), batch, read_idx, targets, bp_ranges, Lp,
+                    Tp)
+        return self.upload(host, n, t, Lp, Tp)
+
+    def upload(self, host, n: int, t: int, Lp: int, Tp: int):
+        """The staged ``host`` buffer on the device, as ``stage``
+        returns it: one copy on a CUDA device, none on the CPU."""
         if self.device.type == "cuda":
             dev = host.to(self.device, non_blocking=True)
             EXACT_COPIES["h2d"] += 1
         else:
             dev = host
-        d_ints = dev[o3:].view(torch.int32)
-        return (dev[:o1].view(n, Lp), dev[o1:o2].view(n, Lp), d_ints[:n],
-                dev[o2:o3].view(t, Tp), d_ints[n:n + t],
-                d_ints[n + t:n + 2 * t], d_ints[n + 2 * t:])
+        return staged_views(dev, n, t, Lp, Tp)
 
 
 class DeviceScanContext:
     """Holds the LUT tensors per qscore converter and dispatches bucketed
-    batches to the split scan on ``device``."""
+    batches to the split scan on ``device``. Where the run has a device
+    process for ``device`` (``parallel.device_proc``), a call's staged
+    inputs go to it and it scans them with ``scan_staged``; this process
+    then makes no CUDA call."""
 
     def __init__(self, mxu: bool = False, device="cuda"):
         self._mxu = bool(mxu)
@@ -240,22 +271,32 @@ class DeviceScanContext:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"no split-scan path for device {self.device}")
         self._luts = {}
-        self._staging = ExactStaging(self.device)
+        self.staging = ExactStaging(self.device)
         _register_scan_report()
+
+    def _put_luts(self, m, x):
+        # the scan clamps quals to [2, 70] and indexes a 71-entry LUT;
+        # reuse the first 71 entries of the 256-entry byte LUTs
+        return tuple(torch.from_numpy(np.ascontiguousarray(a[:71])).to(
+            self.device) for a in (m, x))
 
     def _luts_for(self, qconv):
         hit = self._luts.get(id(qconv))
         if hit is None:
-            m, x = qconv.lut256()
-            # the scan clamps quals to [2, 70] and indexes a 71-entry
-            # LUT; reuse the first 71 entries of the 256-entry byte LUTs
-            hit = (torch.from_numpy(np.ascontiguousarray(m[:71])).to(
-                       self.device),
-                   torch.from_numpy(np.ascontiguousarray(x[:71])).to(
-                       self.device),
-                   qconv)
+            # the entry keeps qconv alive, so its id is not reused
+            hit = (*self._put_luts(*qconv.lut256()), qconv)
             self._luts[id(qconv)] = hit
         return hit[0], hit[1]
+
+    def luts_of(self, m, x):
+        """The LUT tensors of the 71-entry LUTs ``m``, ``x`` (float32
+        numpy), made once for each pair of contents: the device
+        process's, whose callers' converters live in other processes."""
+        key = (m.tobytes(), x.tobytes())
+        hit = self._luts.get(key)
+        if hit is None:
+            hit = self._luts[key] = self._put_luts(m, x)
+        return hit
 
     def _put(self, *arrays):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -271,32 +312,58 @@ class DeviceScanContext:
 
     def _scan_multi(self, flank_score_size, batch, read_idx, qconv,
                     targets, bp_ranges):
-        worker_trace.device_call(self.device)
+        from ..parallel import device_proc
+        remote = device_proc.client_for(self.device)
+        if remote is None:
+            worker_trace.device_call(self.device)
         t0 = time.perf_counter()
         read_idx = np.asarray(read_idx, np.int64)
+        n, t = len(read_idx), len(targets)
+        Lp = read_tier(batch, read_idx)
         Tp = _bucket(max(len(tg) for tg in targets) + 1)
-        staged = stage_reads(batch, read_idx) if self._mxu else None
-        exact = not (self._mxu and self._mxu_eligible(staged[0], targets))
+        if remote is not None:
+            m, x = qconv.lut256()
+            return remote.k3(
+                lambda flat: fill_staged(flat, batch, read_idx, targets,
+                                         bp_ranges, Lp, Tp),
+                n, t, Lp, Tp, flank_score_size, self._mxu, m[:71], x[:71])
+        host = self.staging.host(staged_bytes(n, t, Lp, Tp))
+        fill_staged(host.numpy(), batch, read_idx, targets, bp_ranges, Lp, Tp)
+        return self.scan_staged(host, n, t, Lp, Tp, flank_score_size,
+                                *self._luts_for(qconv), t0)
+
+    def scan_staged(self, host, n: int, t: int, Lp: int, Tp: int,
+                    flank_score_size: int, lut_m, lut_x, t0: float):
+        """One call's scan from its inputs staged in ``host`` (this
+        context's ``ExactStaging`` buffer, filled by ``fill_staged``),
+        with the LUT tensors on the device: the (n, t) best float32
+        ln-likelihoods and int32 positions, and the accounting
+        (``SCAN_STATS`` from ``t0``, the call's start by
+        ``perf_counter``; ``KERNEL_WORK``, ``SCAN_TIERS``). Run by the
+        process that owns the device: the caller's own, or the run's
+        device process."""
+        reads, quals, read_lens, tgts, bp_beg, bp_end, target_len = \
+            staged_views(host.numpy(), n, t, Lp, Tp)
+        exact = not (self._mxu and self._mxu_eligible(reads, tgts))
         if not exact:
             SCAN_STATS["mxu"] += 1
-            out = self._scan_mxu(flank_score_size, *staged, qconv, targets,
-                                 bp_ranges, Tp)
+            out = self._scan_mxu(flank_score_size, reads, quals, read_lens,
+                                 tgts, bp_beg, bp_end, target_len, lut_m,
+                                 lut_x, Tp)
         else:
             # IUPAC codes the one-hot factorization can't encode fall
             # back to the exact scan, which takes any byte
             SCAN_STATS["fallback" if self._mxu else "exact"] += 1
-            out = self._scan_exact(flank_score_size, batch, read_idx, qconv,
-                                   targets, bp_ranges, Tp)
-        SCAN_STATS["rows"] += len(read_idx) * len(targets)
+            out = self._scan_exact(flank_score_size, host, n, t, Lp, Tp,
+                                   lut_m, lut_x)
+        SCAN_STATS["rows"] += n * t
         SCAN_STATS["wall"] += time.perf_counter() - t0
         if exact:
-            Lp = read_tier(batch, read_idx)
-            count_work(batch.seq_off[read_idx + 1] - batch.seq_off[read_idx],
-                       bp_ranges, [len(tg) for tg in targets], Lp, Tp)
+            count_work(read_lens, bp_beg, bp_end, target_len, Lp, Tp)
             tier = SCAN_TIERS.setdefault((Lp, Tp), [0, 0, 0])
             tier[0] += 1
-            tier[1] = max(tier[1], len(read_idx))
-            tier[2] = max(tier[2], len(targets))
+            tier[1] = max(tier[1], n)
+            tier[2] = max(tier[2], t)
         return out
 
     @staticmethod
@@ -306,41 +373,30 @@ class DeviceScanContext:
             codes.update(np.unique(tg).tolist())
         return codes <= _ACGTN_PAD
 
-    def _scan_exact(self, flank_score_size, batch, read_idx, qconv,
-                    targets, bp_ranges, Tp):
-        n, t = len(read_idx), len(targets)
-        lut_m, lut_x = self._luts_for(qconv)
-        staged = self._staging.stage(batch, read_idx, targets, bp_ranges, Tp)
+    def _scan_exact(self, flank_score_size, host, n, t, Lp, Tp, lut_m,
+                    lut_x):
+        staged = self.staging.upload(host, n, t, Lp, Tp)
         # scores' bits and positions in one tensor: one copy back
         out = torch.empty((2, n, t), dtype=torch.int32, device=self.device)
         split_score_factored(*staged, flank_score_size, lut_m, lut_x,
                              n_scan=Tp, out=out)
         if self.device.type == "cuda":
             EXACT_COPIES["d2h"] += 1
-        host = out.cpu().numpy()
-        return host[0].view(np.float32), host[1]
+        res = out.cpu().numpy()
+        return res[0].view(np.float32), res[1]
 
-    def _scan_mxu(self, flank_score_size, reads, quals, read_lens,
-                  qconv, targets, bp_ranges, Tp):
+    def _scan_mxu(self, flank_score_size, reads, quals, read_lens, tgts,
+                  bp_beg, bp_end, target_len, lut_m, lut_x, Tp):
         n, Lp = reads.shape
-        t = len(targets)
+        t = len(tgts)
         # one matmul group per target; every group scores the same reads
         greads = np.broadcast_to(reads, (t, n, Lp))
         gquals = np.broadcast_to(quals, (t, n, Lp))
         grl = np.broadcast_to(read_lens, (t, n))
-        tgts = np.full((t, Tp), ord("N"), np.uint8)
-        bp_beg = np.zeros(t, np.int32)
-        bp_end = np.zeros(t, np.int32)
-        tl = np.zeros(t, np.int32)
-        for k, tg in enumerate(targets):
-            tgts[k, :len(tg)] = tg
-            bp_beg[k] = bp_ranges[k][0]
-            bp_end[k] = bp_ranges[k][1]
-            tl[k] = len(tg)
         s0 = np.zeros(t, np.int32)
-        lut_m, lut_x = self._luts_for(qconv)
         best, pos = junction_split_score(
-            *self._put(greads, gquals, tgts, s0, bp_beg, bp_end, grl, tl),
+            *self._put(greads, gquals, tgts, s0, bp_beg, bp_end, grl,
+                       target_len),
             flank_score_size, lut_m, lut_x, n_scan=Tp)
         # (t, n) -> (n, t)
         return (best.cpu().numpy().T.astype(np.float32).copy(),

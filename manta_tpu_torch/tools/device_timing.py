@@ -1235,7 +1235,9 @@ WINDOW_SLACK_NS = 2_000_000
 def merge_worker_traces(traces: list[dict],
                         window: tuple[float, float]) -> dict:
     """One reading for ``workflow_records`` from the trace files of a
-    -j N run's phase-2 workers: the counts summed over the workers whose
+    -j N run's phase-2 workers, and of its device process where the run
+    has one (``parallel/device_proc``: it launches every kernel and its
+    record counts as a worker's): the counts summed over the workers whose
     bin finished (a worker that died or was retried counts nowhere), and
     their device events (None when they scored on the cpu) as (name,
     start us after phase 2's start, duration us, pid), sorted by start,

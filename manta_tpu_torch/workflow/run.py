@@ -26,6 +26,11 @@ by the module's own line numbers, only in:
 - every phase, fan-out worker and phase-2 stage records its span of the
   run's trace (``parallel.worker_trace``: ``traced_workflow``,
   ``enter_worker``, ``span``), a no-op unless the trace is armed;
+- a -j N run with device scoring on CUDA forks one device process at
+  the start of phase 0 and joins it before the final sort
+  (``parallel.device_proc``: ``engages``, ``start``, ``stop``): it makes
+  the run's one CUDA context, and the phase-2 workers forward their
+  kernel calls to it;
 - :1 and :75 docstring wording.
 """
 
@@ -53,7 +58,7 @@ from ..format.vcfwriter import (
 )
 
 from ..candidates.refiner import SVCandidateAssemblyRefiner
-from ..parallel import worker_trace
+from ..parallel import device_proc, worker_trace
 from ..parallel.forkpool import drain_fork_result
 from ..scoring.scorer import SVScorer
 
@@ -185,6 +190,7 @@ def build_kernels(device_scoring) -> None:
 
 
 @worker_trace.traced_workflow
+@device_proc.stopped_on_return
 def run_workflow(normal_bams: list[str], tumor_bams: list[str],
                  reference: str, run_dir: str,
                  regions: list[str] | None = None,
@@ -308,6 +314,19 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     tasks = TaskTracker(
         workspace_dir, tracker_sig,
         state_name=f"taskState{tracker_tag}.json" if tracker_tag else None)
+
+    # one device process for the run's device scoring
+    # (parallel/device_proc): forked before any CUDA call, it makes the
+    # run's one CUDA context while the fragment statistics below take one
+    # core, and phase 2's workers forward their kernel calls to it
+    engaged = device_proc.engages(
+        scoring_device, n_jobs, jump_scorer, is_rna,
+        one_host=hygen_bin_count is None and hygen_bin_range is None,
+        phase2_to_run=stop_after is None and (
+            is_rescore or not tasks.is_done("hygen")))
+    if engaged:
+        with worker_trace.span("device_proc.start"):
+            device_proc.start(scoring_device, device_scoring)
 
     # phase 0: alignment stats (reusable checkpoint; reference:
     # pyflow task resume + --rescore, mantaWorkflow.py)
@@ -501,6 +520,9 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
     # phase 2: candidate generation and scoring
     with worker_trace.span("phase2"):
         log("generating and scoring SV candidates")
+        if engaged:
+            with worker_trace.span("device_proc.ready"):
+                device_proc.ready()
         variants_dir = os.path.join(run_dir, "results", "variants")
         unsorted_dir = os.path.join(run_dir, "workspace")
         sample_names = [get_sample_name(r, f"SAMPLE{i + 1}")
@@ -739,6 +761,7 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
             os.path.join(run_dir, "workspace", "edgeRuntimeLog.txt"),
             os.path.join(stats_dir, "svCandidateGenerationStats.tsv"),
             os.path.join(stats_dir, "svCandidateGenerationStats.xml")]
+        generated = None
         if tasks.is_done("hygen"):
             log("resume: reusing candidate generation and scoring results")
         else:
@@ -770,6 +793,12 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
                     comps["evidence_writer"].close()
             edge_count = len(all_edges)
             log(f"processed {edge_count} graph edges")
+            generated = (tracker, edge_runtime_log)
+
+    # phase 2's statistics, after its stamp: the phase2 span ends on it
+    if generated is not None:
+        tracker, edge_runtime_log = generated
+        with worker_trace.span("phase2.stats"):
             # (reference: libexec/sortEdgeLogs.py — slowest edges first)
             edge_runtime_log.sort(
                 key=lambda l: float(l.split("\t", 2)[1]), reverse=True)
@@ -802,6 +831,14 @@ def run_workflow(normal_bams: list[str], tumor_bams: list[str],
             return None
         with open(path) as f:
             return f.readlines()
+
+    if engaged:
+        # joined here, so its CPU time is the run's (RUSAGE_CHILDREN)
+        with worker_trace.span("device_proc.stop"):
+            code = device_proc.stop()
+        if code != 0:
+            raise RuntimeError(
+                f"the run's device process exited with code {code}")
 
     with worker_trace.span("final.sort_index"):
         sort_t0 = time.perf_counter()

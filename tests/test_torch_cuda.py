@@ -794,3 +794,106 @@ def test_trace_span_keeps_every_record(cuda):
     assert rec["records_before_span"] == 1, rec
     assert sum(rec["records_by_tenth"]) == 400, rec
     assert all(n > 0 for n in rec["records_by_tenth"]), rec
+
+
+# ---- the run's device process (manta_tpu_torch/parallel/device_proc.py)
+
+# one germline35x.exact sample at -j 8, armed with the profiler and with
+# every K1 and K3 call kept (svbench/capture.py), through the device
+# process and then in process (DEVICE_TYPES emptied: the tests' entry,
+# no user knob), in this one workflow process
+_ROUTES = r"""
+import glob, gzip, json, os, sys
+sys.path.insert(0, sys.argv[1])
+os.environ["PYTORCH_NVML_BASED_CUDA_CHECK"] = "1"
+from svbench import capture, logs, run
+from manta_tpu_torch.parallel import device_proc, worker_trace
+bench, cell, config, traffic = run.cell_spec("germline35x.exact")
+inputs = run.sample_inputs(config, traffic, int(sys.argv[2]))
+wf, resolved = run.import_port(traffic["device_scoring"])
+import torch
+out = {"reads": sum(inputs["reads"]), "mode": resolved}
+for route in ("device_proc", "in_process"):
+    d = os.path.join(sys.argv[3], route)
+    cap, trace = d + ".capture", d + ".trace"
+    os.makedirs(trace)
+    device_proc.DEVICE_TYPES = ("cuda",) if route == "device_proc" else ()
+    undo = capture.install(cap, 1, k3_every=1)
+    worker_trace.arm(trace)
+    fd = os.open(d + ".stderr", os.O_WRONLY | os.O_CREAT, 0o644)
+    saved = os.dup(2)
+    os.dup2(fd, 2)
+    try:
+        wf.run_workflow(inputs["bams"], [], inputs["fasta"], d,
+                        n_jobs=config["workflow"]["jobs"],
+                        scan_size_mb=config["workflow"]["scan_size_mb"],
+                        use_device_scoring=traffic["device_scoring"],
+                        verbose=False)
+    finally:
+        os.dup2(saved, 2)
+        os.close(fd)
+        worker_trace.disarm()
+        undo()
+    recs = [json.load(open(p)) for p in glob.glob(trace + "/*.json")]
+    devs = [r for r in recs if "counts" in r]
+    vcfs = {}
+    for p in sorted(glob.glob(os.path.join(d, "results", "variants",
+                                           "*.vcf.gz"))):
+        with gzip.open(p, "rt") as f:
+            vcfs[os.path.basename(p)] = [
+                ln for ln in f if not ln.startswith(("##fileDate",
+                                                     "##cmdline"))]
+    out[route] = {
+        "cuda_initialized": torch.cuda.is_initialized(),
+        "exit": logs.exit_lines(open(d + ".stderr").read()),
+        "k1_kept": len(glob.glob(cap + "/k1.*.npz")),
+        "k3_kept": len(glob.glob(cap + "/k3.*.npz")),
+        "startups": sorted(r["cuda_startup_s"] for r in devs
+                           if r.get("cuda_startup_s") is not None),
+        "roles": sorted(r["role"] for r in devs),
+        "launches": {k: sum(r["counts"]["launches"][k] for r in devs)
+                     for k in ("jump_score", "split_score")},
+        "traced": {k: sum(1 for r in devs for e in r["events"] or ()
+                          if f in e[0])
+                   for k, f in (("jump_score", "jump_systolic_kernel"),
+                                ("split_score", "split_score_kernel"))},
+        "vcfs": vcfs}
+print(json.dumps(out))
+"""
+
+
+def test_device_process_against_the_in_process_route(cuda, tmp_path):
+    """One whole sample of ``germline35x.exact`` (11.2 M reads, -j 8, K1
+    and K3 on the card): the VCFs through the run's device process are
+    the in-process route's, byte for byte; one record carries a
+    ``cuda_startup_s`` (eight or fewer in process, one a worker that
+    scored); the exit lines' launches equal the calls the seams made and
+    the records' launches, each launch counted once; the workflow
+    process never initialises CUDA."""
+    seed = os.environ.get("DEVICE_PROC_CARD_SEED", "2718281829")
+    res = subprocess.run(
+        [sys.executable, "-c", _ROUTES,
+         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), seed,
+         str(tmp_path)], capture_output=True, text=True, timeout=1500)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    proc, inproc = out["device_proc"], out["in_process"]
+    print("[device-proc-card] " + json.dumps(
+        {"device": torch.cuda.get_device_name(0), "seed": seed,
+         "reads": out["reads"],
+         **{r: {k: v for k, v in out[r].items() if k != "vcfs"}
+            for r in ("device_proc", "in_process")}}), flush=True)
+    assert out["mode"] == "exact"
+    assert proc["vcfs"] == inproc["vcfs"]
+    assert "diploidSV.vcf.gz" in proc["vcfs"]
+    assert len(proc["startups"]) == 1 and proc["roles"].count(
+        "device_proc") == 1
+    assert 1 < len(inproc["startups"]) <= 8
+    for r in (proc, inproc):
+        assert not r["cuda_initialized"]
+        assert r["exit"]["k1_launches"] == r["exit"]["k1_calls"] == \
+            r["k1_kept"] == r["launches"]["jump_score"] > 0
+        assert r["exit"]["k3_launches"] == r["exit"]["k3_calls"] == \
+            r["k3_kept"] == r["launches"]["split_score"] > 0
+    assert proc["exit"] == inproc["exit"]
+    assert proc["traced"] == proc["launches"]

@@ -234,7 +234,7 @@ def test_armed_run_every_process_writes_a_record_of_the_run(armed):
     assert [s[0] for s in wf["spans"]] == [
         "workflow", "phase0.fragstats", "phase0.depth", "phase1.segments",
         "phase1.merge", "phase1.finalize", "phase1.save", "phase1.load",
-        "phase2", "phase2.merge_shards", "final.sort_index"]
+        "phase2", "phase2.merge_shards", "phase2.stats", "final.sort_index"]
     regions = [s[4]["regions"] for r in roles["phase1"] for s in r["spans"]]
     assert sorted(regions) == [[[0, 0, 1_000_000]],
                                [[0, 1_000_000, 2_000_000]]]
