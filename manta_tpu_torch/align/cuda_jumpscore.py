@@ -26,6 +26,8 @@ import ctypes
 
 import torch
 
+from ..parallel import counters
+
 # one per kernel launch: "jump_score" by jump_score_cuda,
 # "jump_score_bounded" by jump_score_flagged_cuda, and nowhere else
 KERNEL_LAUNCHES = {"jump_score": 0, "jump_score_bounded": 0}
@@ -38,6 +40,7 @@ KERNEL_LAUNCHES = {"jump_score": 0, "jump_score_bounded": 0}
 # ``count_work``). No workflow launches the bounded kernel.
 KERNEL_WORK = {name: {"useful": 0, "padded": 0, "bytes": 0}
                for name in KERNEL_LAUNCHES}
+counters.register({"launches": KERNEL_LAUNCHES, "work": KERNEL_WORK})
 
 _LIB = None
 _BOUNDED_LIB = None

@@ -29,6 +29,8 @@ import math
 
 import torch
 
+from ..parallel import counters
+
 # one per kernel launch made by split_score_cuda or
 # split_score_factored_cuda, and nowhere else
 KERNEL_LAUNCHES = {"split_score": 0}
@@ -39,6 +41,7 @@ KERNEL_LAUNCHES = {"split_score": 0}
 # the ``bytes`` of its inputs and outputs, each once
 # (``scoring.device_scan.count_work``)
 KERNEL_WORK = {"split_score": {"useful": 0, "padded": 0, "bytes": 0}}
+counters.register({"launches": KERNEL_LAUNCHES, "work": KERNEL_WORK})
 
 _LIB = None
 _LN_RANDOM = -math.log(4.0)

@@ -42,10 +42,13 @@ the other.
 
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import torch
 
-from ..parallel import worker_trace
+from ..parallel import counters, device_proc, worker_trace
 from .cuda_jumpscore import (
     KERNEL_LAUNCHES, KERNEL_WORK, jump_score_cuda, raise_on_kernel_error,
     rerun_flagged,
@@ -576,37 +579,31 @@ DISPATCH_STATS = {"calls": 0, "jobs": 0, "rows": 0, "wall": 0.0,
                   "first_wall": 0.0}
 # calls by padded bucket shape (B, nq, nr1, nr2)
 DISPATCH_BUCKETS: dict[tuple[int, int, int, int], int] = {}
-# the process that registered the report (a forked child registers its
-# own)
-_REPORT_PID = None
 
 
-def _register_dispatch_report():
-    import os as _os
-    import sys as _sys
-    global _REPORT_PID
-    if _REPORT_PID == _os.getpid():
-        return
-    _REPORT_PID = _os.getpid()
+def _dispatch_line():
+    s = DISPATCH_STATS
+    if not s["calls"]:
+        return None
+    work = KERNEL_WORK["jump_score"]
+    return (f"[manta-tpu-torch] device-dispatch pid={os.getpid()}: "
+            f"{s['calls']} calls, {s['jobs']} jobs, "
+            f"{s['rows']} padded rows, {s['wall']:.4f}s total, "
+            f"first {s['first_wall']:.4f}s (incl. kernel build), "
+            f"{KERNEL_LAUNCHES['jump_score']} kernel launches; "
+            f"calls by bucket (B, nq, nr1, nr2): "
+            f"{dict(sorted(DISPATCH_BUCKETS.items()))}; work: "
+            f"{work['useful']} useful cells, {work['padded']} "
+            f"padded cells, {work['bytes']} bytes")
 
-    from ..parallel.forkpool import at_process_exit
 
-    def report():
-        s = DISPATCH_STATS
-        work = KERNEL_WORK["jump_score"]
-        if s["calls"]:
-            print(f"[manta-tpu-torch] device-dispatch pid={_os.getpid()}: "
-                  f"{s['calls']} calls, {s['jobs']} jobs, "
-                  f"{s['rows']} padded rows, {s['wall']:.4f}s total, "
-                  f"first {s['first_wall']:.4f}s (incl. kernel build), "
-                  f"{KERNEL_LAUNCHES['jump_score']} kernel launches; "
-                  f"calls by bucket (B, nq, nr1, nr2): "
-                  f"{dict(sorted(DISPATCH_BUCKETS.items()))}; work: "
-                  f"{work['useful']} useful cells, {work['padded']} "
-                  f"padded cells, {work['bytes']} bytes",
-                  file=_sys.stderr, flush=True)
-            s["calls"] = 0        # once per process
-    at_process_exit(report)
+# the dispatcher reaches only the exact kernel of the two
+counters.register(
+    {"calls": lambda: dict(dict.fromkeys(KERNEL_LAUNCHES, 0),
+                           jump_score=DISPATCH_STATS["calls"]),
+     "wall": lambda: dict(dict.fromkeys(KERNEL_LAUNCHES, 0.0),
+                          jump_score=DISPATCH_STATS["wall"])},
+    line=_dispatch_line)
 
 
 def make_bucketed_scorer(scores, jump_score: int, device):
@@ -614,31 +611,22 @@ def make_bucketed_scorer(scores, jump_score: int, device):
     reference's tiers and pad sentinels) and returns the exact int32 max
     jump-alignment scores as numpy, bit-identical to the host traceback
     aligner. On a CUDA device every batch goes through the hand-written
-    kernel; on the CPU through the plain form. Where the run has a
-    device process for ``device`` (``parallel.device_proc``), the padded
-    arrays go to it and it scores them with ``score_padded``; this
-    process then makes no CUDA call."""
-    from ..parallel import device_proc
+    kernel; on the CPU through the plain form: ``score_padded``, in one
+    call on this process's route for ``device`` (``parallel.
+    device_proc``)."""
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"no jump-score path for device {device}")
-    _register_dispatch_report()
 
     def scorer(jobs):
-        import time as _time
         B = len(jobs)
         if B == 0:
             return np.zeros(0, np.int32)
         with worker_trace.span("k1.dispatch"):
-            remote = device_proc.client_for(device)
-            if remote is None:
-                worker_trace.device_call(device)
-            _t0 = _time.perf_counter()
-            Bp = _bucket(B, tiers=(8, 16, 32, 64, 128, 256))
-            arrays = pad_jobs(jobs, Bp)
-            if remote is not None:
-                return remote.k1(arrays, B, scores, jump_score)
-            return score_padded(arrays, B, scores, jump_score, device, _t0)
+            arrays = pad_jobs(jobs, _bucket(B, tiers=(8, 16, 32, 64, 128,
+                                                      256)))
+            return device_proc.route(device).k1(arrays, B, scores,
+                                                jump_score)
 
     return scorer
 
@@ -647,13 +635,13 @@ def score_padded(arrays, B: int, scores, jump_score: int, device, t0: float):
     """The scores of the first ``B`` rows of ``pad_jobs``'s ``arrays``
     on ``device`` (int32 numpy (B,)), with the dispatch accounting:
     ``DISPATCH_STATS`` from ``t0`` (the call's start, ``perf_counter``),
-    ``DISPATCH_BUCKETS`` and ``KERNEL_WORK``. Run by the process that
-    owns the device: the scorer's own, or the run's device process."""
-    import time as _time
+    ``DISPATCH_BUCKETS`` and ``KERNEL_WORK``. Run by the route of the
+    process that owns the device: the scorer's own, or the run's device
+    process."""
     t = from_reference_inputs(*arrays, device)
     res = _score(*t, scores, jump_score).cpu().numpy()[:B]
     raise_on_kernel_error()
-    dt = _time.perf_counter() - t0
+    dt = time.perf_counter() - t0
     Bp = len(arrays[0])
     s = DISPATCH_STATS
     if s["calls"] == 0:

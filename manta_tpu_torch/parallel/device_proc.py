@@ -1,43 +1,37 @@
 """The run's device process: one CUDA context for phase 2, not one a
 worker.
 
-A -j N run with device scoring made a CUDA context in each phase-2
-worker, at its first device call: 1.1-2.9 s of host time a worker, eight
-a sample, for under 20 ms of kernels (PERF.md section 5). Instead the
-workflow process forks one device process at the start of phase 0
-(``start``), before any CUDA call anywhere: the workflow process itself
-makes none. The device process makes the run's one context at once,
-while phase 0's fragment statistics take one core, and then waits in
-``select``, using no CPU, until phase 2 calls it. As phase 2 begins,
-the workflow process waits on ``ready`` before it forks the workers.
+A CUDA context a phase-2 worker cost 1.1-2.9 s of host time, eight a
+sample, for under 20 ms of kernels (PERF.md section 5). So the workflow
+process forks one device process at the start of phase 0 (``start``),
+before any CUDA call anywhere, and makes none itself. The device
+process makes the run's one context at once, beside phase 0's fragment
+statistics, then waits in ``select``, using no CPU, until phase 2 calls
+it; the workflow process waits on ``ready`` before it forks the
+phase-2 workers.
 
-The phase-2 workers never touch CUDA. The two device seams keep their
-arguments, results and spans: the contig scorer of
+This module owns the card. Each device seam, the contig scorer of
 ``align.device_jumpscore.make_bucketed_scorer`` (K1, ``k1.dispatch``)
 and ``scoring.device_scan.DeviceScanContext.scan_multi`` (K3,
-``k3.route``). Beneath them ``client_for`` gives the caller's process a
-``Client``, which writes the host arrays that would have been copied to
-the card into a shared-memory buffer of the process's own (a ``memfd``,
-whose descriptor goes over once) and sends a request on a
-``SOCK_SEQPACKET`` Unix socket that says what lies there. The device
-process runs the code the caller would have run on them,
-``device_jumpscore.score_padded`` and ``DeviceScanContext.scan_staged``,
-with the same bucketing and tiers, and writes the int32 and float32
-results back into the buffer. Nothing is pickled, and the results are
-the in-process path's bit for bit: the same kernels on the same arrays
-in the same order.
+``k3.route``), makes one call, ``k1`` or ``k3``, on ``route(device)``:
+an ``InProcess`` route, or a ``Client`` of the run's device process,
+which writes the host arrays bound for the card into a shared-memory
+buffer of its process's own (a ``memfd``, whose descriptor goes over
+once) and sends a request on a ``SOCK_SEQPACKET`` Unix socket that says
+what lies there. The device process runs them through an ``InProcess``
+route of its own and writes the results back into the buffer; nothing
+is pickled, and the results are bit for bit the in-process route's.
+``make_context`` alone makes a CUDA context on its own: the device
+process's at its start, a traced phase-2 worker's at its first call.
 
 Each launch is counted once, by the process that launches it: the
-device process keeps ``DISPATCH_STATS``, ``SCAN_STATS``,
-``KERNEL_LAUNCHES`` and ``KERNEL_WORK``, prints the ``device-dispatch``
-and ``split-scan`` exit lines, and, armed (``parallel.worker_trace``),
-writes ``device_trace.<pid>.json`` with the role ``device_proc``: its
-device events, counts and ``cuda_startup_s``, and the spans
-``cuda.context``, ``trace.start`` (its profiler starts at ``ready``, so
-that the trace's own start, seconds long, overlaps no phase's work and
-no worker's call), ``device_proc.k1`` or ``device_proc.k3`` for each
-request served, and ``trace.stop``.
-``DEVICE_PROC`` counts the route itself.
+device process counts the kernels and the seams (``parallel.counters``)
+and prints their exit lines; armed (``parallel.worker_trace``), it
+writes ``device_trace.<pid>.json`` (role ``device_proc``) with the spans
+``cuda.context``, ``trace.start`` (at ``ready``: the trace's own start,
+seconds long, overlaps no phase's work), ``device_proc.k1`` or
+``device_proc.k3`` a request, and ``trace.stop``. ``DEVICE_PROC`` counts
+the route itself.
 
 ``stop``, after phase 2's workers are reaped and before the final sort,
 asks the device process to exit and joins it, so that its CPU time lands
@@ -47,7 +41,7 @@ nothing falls back to the host. One whose workflow process is gone
 exits within a second.
 
 Which runs have one: ``engages``. Every other run keeps the in-process
-path, on which each process that scores makes its own context.
+route, on which each process that scores makes its own context.
 """
 
 from __future__ import annotations
@@ -60,9 +54,12 @@ import socket
 import struct
 import time
 import traceback
+from contextlib import nullcontext
 from types import SimpleNamespace
 
 import numpy as np
+
+from . import counters, worker_trace
 
 # the device types a run may give a device process; the tests widen it
 # to run the route on the CPU, or empty it to keep a card run in process
@@ -75,6 +72,7 @@ DEVICE_TYPES = ("cuda",)
 DEVICE_PROC = {"contexts": 0, "k1_calls": 0, "k3_calls": 0, "bytes_in": 0,
                "bytes_out": 0, "ready_wait_s": 0.0, "round_trip_s": 0.0,
                "service_s": 0.0}
+counters.register({"device_proc": DEVICE_PROC})
 
 # a request: its kind, then the kind's integer fields
 REQUEST = struct.Struct("<16q")
@@ -92,6 +90,8 @@ STOP_TIMEOUT_S = 600.0
 _RUN: dict | None = None
 # this process's client, made at its first forwarded call
 _CLIENT: Client | None = None
+# the in-process routes, by (process, device)
+_LOCAL: dict = {}
 
 
 def engages(device, n_jobs: int, jump_scorer, is_rna: bool,
@@ -196,16 +196,34 @@ def stopped_on_return(run):
     return wrapper
 
 
-def client_for(device) -> Client | None:
-    """This process's client of the run's device process where it serves
-    ``device``; None where the run has none (the in-process path)."""
+def route(device) -> InProcess | Client:
+    """This process's route for ``device``: its client of the run's
+    device process where that serves ``device``, else its in-process
+    route."""
     global _CLIENT
     run = _RUN
-    if run is None or run["device"] != device:
-        return None
-    if _CLIENT is None or _CLIENT.pid != os.getpid():
-        _CLIENT = Client(run["address"])
-    return _CLIENT
+    if run is not None and run["device"] == device:
+        if _CLIENT is None or _CLIENT.pid != os.getpid():
+            _CLIENT = Client(run["address"])
+        return _CLIENT
+    key = (os.getpid(), device)
+    hit = _LOCAL.get(key)
+    if hit is None:
+        hit = _LOCAL[key] = InProcess(device)
+    return hit
+
+
+def make_context(device, timed: bool) -> None:
+    """Make this process's CUDA context on ``device``; ``timed``: in the
+    ``cuda.context`` span, its seconds told to the run trace
+    (``cuda_startup_s``)."""
+    import torch
+    with worker_trace.span("cuda.context") if timed else nullcontext():
+        t0 = time.perf_counter()
+        torch.empty(1, device=device)
+        torch.cuda.synchronize(device)
+        if timed:
+            worker_trace.context_made(time.perf_counter() - t0)
 
 
 # ------------------------------------------------------------ layouts
@@ -337,89 +355,112 @@ class Client:
         return best.copy(), pos.reshape(n, t).copy()
 
 
-# ------------------------------------------------------------ device
+# ------------------------------------------------------------ in process
 
-class _Server:
-    """The device process's side: what each request runs."""
+class InProcess:
+    """The route of a process that runs its own kernels on ``device``;
+    ``serving``: the device process's, whose context is made at its
+    start."""
 
-    def __init__(self, device):
+    def __init__(self, device, serving: bool = False):
         self.device = device
+        self._serving = serving
         self._scans = {}
 
-    def _scan(self, mxu: bool):
-        from ..scoring.device_scan import DeviceScanContext
+    def _enter(self) -> None:
+        """Before each call: a traced phase-2 worker's first makes its
+        context, timed, and starts the trace."""
+        if self._serving or not worker_trace.first_device_call():
+            return
+        if self.device.type == "cuda":
+            make_context(self.device, timed=True)
+            worker_trace.start_profiler()
+
+    def k1(self, arrays, B: int, scores, jump_score: int):
+        """As ``Client.k1``, with ``score_padded`` in this process."""
+        from ..align.device_jumpscore import score_padded
+        self._enter()
+        return score_padded(arrays, B, scores, jump_score, self.device,
+                            time.perf_counter())
+
+    def k3(self, fill, n: int, t: int, Lp: int, Tp: int, flank: int,
+           mxu: bool, lut_m, lut_x):
+        """As ``Client.k3``, with ``scan_staged`` in this process on the
+        inputs ``fill`` writes into its staging buffer."""
+        from ..scoring.device_scan import DeviceScanContext, staged_bytes
+        self._enter()
+        t0 = time.perf_counter()
         ctx = self._scans.get(mxu)
         if ctx is None:
             ctx = self._scans[mxu] = DeviceScanContext(mxu, self.device)
-        return ctx
+        host = ctx.staging.host(staged_bytes(n, t, Lp, Tp))
+        fill(host.numpy())
+        return ctx.scan_staged(host, n, t, Lp, Tp, flank,
+                               *ctx.luts_of(lut_m, lut_x), t0)
 
-    def handle(self, state: dict, fields, fds) -> None:
-        from . import worker_trace
-        kind = fields[0]
-        if kind == MAP:
-            try:
-                state["mm"] = mmap.mmap(fds[0], fields[1])
-            finally:
-                for fd in fds:
-                    os.close(fd)
-        elif kind == K1:
-            with worker_trace.span("device_proc.k1"):
-                self._k1(state["mm"], *fields[1:12])
-        elif kind == K3:
-            with worker_trace.span("device_proc.k3"):
-                self._k3(state["mm"], *fields[1:7])
-        else:
-            raise ValueError(f"unknown request {kind}")
 
-    def _k1(self, mm, B, Bp, nq, nr1, nr2, match, mismatch, open_, extend,
-            off_edge, jump_score):
-        from ..align.device_jumpscore import score_padded
-        t0 = time.perf_counter()
-        layout, out = k1_layout(Bp, nq, nr1, nr2)
-        arrays = [np.frombuffer(mm, np.int32, int(np.prod(shape)),
-                                off).reshape(shape).copy()
-                  for shape, off in layout]
-        scores = SimpleNamespace(match=match, mismatch=mismatch, open=open_,
-                                 extend=extend, off_edge=off_edge)
-        res = score_padded(arrays, B, scores, jump_score, self.device, t0)
-        np.frombuffer(mm, np.int32, B, out)[:] = res
+# ------------------------------------------------------------ device
 
-    def _k3(self, mm, n, t, Lp, Tp, flank, mxu):
-        t0 = time.perf_counter()
-        ctx = self._scan(bool(mxu))
-        lut, out = k3_layout(n, t, Lp, Tp)
-        host = ctx.staging.host(lut)
-        host.numpy()[:] = np.frombuffer(mm, np.uint8, lut)
-        luts = ctx.luts_of(np.frombuffer(mm, np.float32, LUT, lut).copy(),
-                           np.frombuffer(mm, np.float32, LUT,
-                                         lut + 4 * LUT).copy())
-        best, pos = ctx.scan_staged(host, n, t, Lp, Tp, flank, *luts, t0)
-        np.frombuffer(mm, np.float32, n * t, out)[:] = best.ravel()
-        np.frombuffer(mm, np.int32, n * t, out + 4 * n * t)[:] = pos.ravel()
+def _handle(served: InProcess, state: dict, fields, fds) -> None:
+    """The device process's side of a request: a buffer to map, or a K1
+    or K3 call whose arrays lie in the caller's buffer, run through the
+    device process's route ``served``."""
+    kind, mm = fields[0], state["mm"]
+    if kind == MAP:
+        try:
+            state["mm"] = mmap.mmap(fds[0], fields[1])
+        finally:
+            for fd in fds:
+                os.close(fd)
+    elif kind == K1:
+        with worker_trace.span("device_proc.k1"):
+            B, Bp, nq, nr1, nr2 = fields[1:6]
+            layout, out = k1_layout(Bp, nq, nr1, nr2)
+            arrays = [np.frombuffer(mm, np.int32, int(np.prod(shape)),
+                                    off).reshape(shape).copy()
+                      for shape, off in layout]
+            match, mismatch, open_, extend, off_edge, jump = fields[6:12]
+            scores = SimpleNamespace(match=match, mismatch=mismatch,
+                                     open=open_, extend=extend,
+                                     off_edge=off_edge)
+            np.frombuffer(mm, np.int32, B, out)[:] = served.k1(
+                arrays, B, scores, jump)
+    elif kind == K3:
+        with worker_trace.span("device_proc.k3"):
+            n, t, Lp, Tp, flank, mxu = fields[1:7]
+            lut, out = k3_layout(n, t, Lp, Tp)
+
+            def fill(flat):
+                flat[:] = np.frombuffer(mm, np.uint8, lut)
+            best, pos = served.k3(
+                fill, n, t, Lp, Tp, flank, bool(mxu),
+                np.frombuffer(mm, np.float32, LUT, lut).copy(),
+                np.frombuffer(mm, np.float32, LUT, lut + 4 * LUT).copy())
+            np.frombuffer(mm, np.float32, n * t, out)[:] = best.ravel()
+            np.frombuffer(mm, np.int32, n * t, out + 4 * n * t)[:] = \
+                pos.ravel()
+    else:
+        raise ValueError(f"unknown request {kind}")
 
 
 def _serve(listener, device, device_scoring: str, parent: int) -> None:
     """The device process: make the context, then serve requests until
     ``STOP`` or until the workflow process ``parent`` is gone."""
-    from . import worker_trace
-    worker_trace.enter_device_process(device)
+    traced = worker_trace.enter_device_process()
     if device.type == "cpu":
         # the plain forms on the CPU (the tests' route): a forked child
         # cannot use the thread pool of a parent that ran torch ops
         import torch
         torch.set_num_threads(1)
     else:
+        make_context(device, timed=traced)
         DEVICE_PROC["contexts"] += 1
         # the libraries the mode launches, loaded before they are needed
         from ..align import cuda_jumpscore, cuda_splitscore
         cuda_jumpscore._lib()
         if device_scoring in ("exact", "mxu"):
             cuda_splitscore._lib()
-    from ..align.device_jumpscore import _register_dispatch_report
-    from ..scoring.device_scan import _register_scan_report
-    _register_dispatch_report()
-    _register_scan_report()
-    server = _Server(device)
+    served = InProcess(device, serving=True)
     sel = selectors.DefaultSelector()
     sel.register(listener, selectors.EVENT_READ)
     ready = REPLY.pack(0, 0)
@@ -453,12 +494,12 @@ def _serve(listener, device, device_scoring: str, parent: int) -> None:
                 conn.send(ready)
                 return
             if fields[0] == READY:
-                worker_trace.start_device_trace()
+                worker_trace.start_profiler()
                 conn.send(ready)
                 continue
             t0 = time.perf_counter_ns()
             try:
-                server.handle(key.data, fields, fds)
+                _handle(served, key.data, fields, fds)
                 reply = REPLY.pack(0, time.perf_counter_ns() - t0)
             except Exception:                   # the caller raises it
                 text = traceback.format_exc()[-(REPLY_MAX // 2):]

@@ -56,24 +56,20 @@ write ``directory/device_trace.<pid>.json`` at exit, with besides:
 - ``events``: its device events (kernels, copies, memsets) as [name,
   start ns, duration ns] on the same wall clock; None where it scored on
   the CPU or the run was armed with ``device=False``;
-- ``counts``: its wrappers' launches, each kernel's work
-  (``KERNEL_WORK``), the calls and walls of the seams that reach
-  them (the contig dispatcher, the split router), and the scorer's
-  junctions, samples, fragments and times (``joint``), and the device
-  process's route (``device_proc``);
-- ``cuda_startup_s``: the host seconds of its first CUDA call, which
-  makes its CUDA context (the ``cuda.context`` span);
+- ``counts``: its counts from the ledger (``parallel.counters``);
+- ``cuda_startup_s``: the host seconds its CUDA context took to make
+  (the ``cuda.context`` span);
 - ``clock``: the clock the profiler's timestamps came on, and
   ``finished``: whether the worker's bin was written.
 
-A phase-2 worker starts its trace at its first device call
-(``device_call``): it makes its CUDA context first and times it, then
-starts a ``torch.profiler`` window of CUDA activity only, so a worker
-that never reaches the device never makes a context, and the trace costs
-no host work a launch. Where the run has a device process, it alone
-makes a context, at its start, and traces the card, from phase 2's
-start; the phase-2 workers forward their seam calls to it and make
-none.
+A phase-2 worker that scores in process starts its trace at its first
+device call (``first_device_call``): its route (``parallel.device_proc``,
+the one maker of a context outside a kernel call) makes its context,
+timed, then ``start_profiler`` starts a ``torch.profiler``
+window of CUDA activity only, so a worker that never reaches the device
+makes no context, and the trace costs no host work a launch. A run's
+device process makes the one context, at its start, and traces the card
+from phase 2's start; its phase-2 workers make none.
 ``arm(directory, device=False)`` records the
 spans only: no profiler, and no context made apart from the first
 seam's call (no ``cuda.context`` or ``trace.*`` span, no
@@ -84,11 +80,14 @@ its first test: no clock, no record, no profiler, no file.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
-import sys
 import time
+
+from . import counters
+from .forkpool import at_process_exit
 
 # the spans each process records, by its role
 SPANS = {
@@ -130,17 +129,7 @@ def disarm() -> None:
     _REC = _WORKER = None
 
 
-class _NoSpan:
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
-_NO_SPAN = _NoSpan()
+_NO_SPAN = contextlib.nullcontext()
 
 
 class _Span:
@@ -213,7 +202,6 @@ def enter_worker(role: str) -> None:
     global _REC
     if _ARMED["dir"] is None:
         return
-    from .forkpool import at_process_exit
     _REC = rec = _new_record(role, _REC)
     at_process_exit(lambda: _write_record(rec, f"trace.{rec['pid']}.json"))
 
@@ -222,158 +210,95 @@ def enter_phase2_worker(bin_index: int) -> None:
     """Called first in a phase-2 worker: armed, this process keeps a
     record, opens its ``worker`` span (closed at exit, after the trace
     stops) and writes its record at exit."""
+    if _ARMED["dir"] is not None:
+        _enter_device_record("phase2", bin_index)
+
+
+def enter_device_process() -> bool:
+    """Called first in the run's device process (``parallel.
+    device_proc``): armed, this process keeps a record (role
+    ``device_proc``) and writes ``device_trace.<pid>.json`` at exit.
+    Returns whether it traces the card (armed with the profiler): then
+    it times its context as a phase-2 worker does (``context_made``)
+    and its profiler waits for ``start_profiler``."""
+    return _ARMED["dir"] is not None and \
+        _enter_device_record("device_proc", None)["device"]
+
+
+def _enter_device_record(role: str, bin_index: int | None) -> dict:
     global _REC, _WORKER
-    if _ARMED["dir"] is None:
-        return
-    from .forkpool import at_process_exit
-    _REC = _new_record("phase2", _REC)
-    worker = span("worker", bin=bin_index)
-    worker.__enter__()
+    _REC = _new_record(role, _REC)
+    worker = None
+    if bin_index is not None:
+        worker = span("worker", bin=bin_index)
+        worker.__enter__()
     # "finished": the counts when the bin was written, else None
     _WORKER = {"bin": bin_index, "finished": None, "cuda_startup_s": None,
                "device": _ARMED["device"], "profiler": None,
                "touched": False, "span": worker}
     at_process_exit(_write)
+    return _WORKER
 
 
-def enter_device_process(device) -> None:
-    """Called first in the run's device process (``parallel.
-    device_proc``): makes its CUDA context at once. Armed, this process
-    keeps a record (role ``device_proc``) and writes
-    ``device_trace.<pid>.json`` at exit; armed with the profiler, the
-    context is made as a phase-2 worker makes its own (the
-    ``cuda.context`` span, ``cuda_startup_s``) and the profiler waits
-    for ``start_device_trace``; otherwise the context is made untimed."""
-    global _REC, _WORKER
-    import torch
-    device = torch.device(device)
-    if _ARMED["dir"] is not None:
-        from .forkpool import at_process_exit
-        _REC = _new_record("device_proc", _REC)
-        _WORKER = {"bin": None, "finished": None, "cuda_startup_s": None,
-                   "device": _ARMED["device"], "profiler": None,
-                   "touched": False, "span": None}
-        at_process_exit(_write)
-    if device.type != "cuda":
-        return
-    if _WORKER is not None and _WORKER["device"]:
-        _make_context(device)
-    else:
-        torch.empty(1, device=device)
-        torch.cuda.synchronize(device)
-
-
-def start_device_trace() -> None:
-    """Called in the run's device process as phase 2 begins, before the
-    workers are forked: armed with the profiler, starts it (the
-    ``trace.start`` span), so that the trace's own start, seconds long,
-    runs before the first request and beside no phase's work."""
+def first_device_call() -> bool:
+    """Called by the in-process route before each call: marks an armed
+    phase-2 worker as one that scored. True at the first call of a
+    worker armed with the profiler: its route then makes its context,
+    timed, and starts the trace. Armed with the spans only, the first
+    seam's call makes the context, as unarmed (made on its own, it cost
+    phase 2 ~0.5 s on the card, PERF.md)."""
     w = _WORKER
-    if w is not None and w["cuda_startup_s"] is not None \
-            and w["profiler"] is None:
-        _start_profiler()
+    if w is None or w["touched"]:
+        return False
+    w["touched"] = True
+    return w["device"]
 
 
-def bin_finished() -> None:
-    """Called once the worker's bin is written (in the device process: at
-    its stop): only finished workers count in the merge, with their
-    counts as they stand here (the exit lines' report, which runs at
-    exit too, zeroes the dispatcher's)."""
+def context_made(seconds: float) -> None:
+    """The host seconds this process took to make its CUDA context
+    (``cuda_startup_s``)."""
     if _WORKER is not None:
-        _WORKER["finished"] = counts()
+        _WORKER["cuda_startup_s"] = seconds
 
 
-def device_call(device) -> None:
-    """Called by the device seams before each call. In a worker armed
-    with the profiler, the first call on a CUDA device makes the context,
-    timed, and starts the trace; armed with the spans only, or on the
-    CPU, it only marks the worker as one that scored (the context is
-    then made inside the first seam's span, as in an unarmed run: made
-    here on its own, it cost phase 2 ~0.5 s on the card, PERF.md)."""
-    if _WORKER is None or _WORKER["touched"]:
+def start_profiler() -> None:
+    """Start a ``torch.profiler`` window of CUDA activity only (the
+    ``trace.start`` span), once, in a process armed with the profiler
+    that made its context: a phase-2 worker at its first device call,
+    the run's device process as phase 2 begins, before the workers are
+    forked, so that the trace's own start, seconds long, runs before the
+    first request and beside no phase's work."""
+    w = _WORKER
+    if w is None or w["cuda_startup_s"] is None or w["profiler"] is not None:
         return
-    _WORKER["touched"] = True
-    import torch
-    device = torch.device(device)
-    if device.type != "cuda" or not _WORKER["device"]:
-        return
-    _make_context(device)
-    _start_profiler()
-
-
-def _make_context(device) -> None:
-    """Make this process's CUDA context, timed (``cuda_startup_s``)."""
-    import torch
-    with span("cuda.context"):
-        t0 = time.perf_counter()
-        torch.empty(1, device=device)
-        torch.cuda.synchronize(device)
-        _WORKER["cuda_startup_s"] = time.perf_counter() - t0
-
-
-def _start_profiler() -> None:
-    """Start a ``torch.profiler`` window of CUDA activity only."""
     with span("trace.start"):
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CUDA])
         wall_ns, mono_ns = time.time_ns(), time.monotonic_ns()
         prof.start()
-        _WORKER["profiler"] = (prof, wall_ns, mono_ns)
+        w["profiler"] = (prof, wall_ns, mono_ns)
 
 
-KERNELS = ("jump_score", "jump_score_bounded", "split_score")
+def bin_finished() -> None:
+    """Called once the worker's bin is written (in the device process: at
+    its stop): only finished workers count in the merge, with their
+    counts as they stand here."""
+    if _WORKER is not None:
+        _WORKER["finished"] = counts()
 
 
 def zero_counts() -> dict:
     """``counts()`` of a process that did nothing."""
-    return {"launches": dict.fromkeys(KERNELS, 0),
-            "work": {k: {"useful": 0, "padded": 0, "bytes": 0}
-                     for k in KERNELS},
-            "calls": dict.fromkeys(KERNELS, 0),
-            "wall": dict.fromkeys(KERNELS, 0.0),
-            "joint": {"junctions": 0, "sample_junctions": 0,
-                      "fragments": [], "evidence_ns": 0, "genotype_ns": 0},
-            "device_proc": {"contexts": 0, "k1_calls": 0, "k3_calls": 0,
-                            "bytes_in": 0, "bytes_out": 0,
-                            "ready_wait_s": 0.0, "round_trip_s": 0.0,
-                            "service_s": 0.0}}
+    return counters.zeros(counts())
 
 
 def counts() -> dict:
-    """This process's host-side counts: each wrapper's launches, each
-    kernel's work (``KERNEL_WORK``), the calls and walls of the seams
-    that reach it (the contig dispatcher; the split router's exact scans
-    and mxu fallbacks), and under ``joint`` the scorer's
-    ``JOINT_STATS`` (junctions, sample-junctions, fragments per sample,
-    ns in evidence and in the score models), and under ``device_proc``
-    the run's device process's route (``DEVICE_PROC``: contexts made,
-    calls forwarded, bytes each way, seconds waited), from the modules it
-    imported: zeros for those it never imported."""
-    cj = sys.modules.get("manta_tpu_torch.align.cuda_jumpscore")
-    cs = sys.modules.get("manta_tpu_torch.align.cuda_splitscore")
-    dj = sys.modules.get("manta_tpu_torch.align.device_jumpscore")
-    ds = sys.modules.get("manta_tpu_torch.scoring.device_scan")
-    sc = sys.modules.get("manta_tpu_torch.scoring.scorer")
-    dp = sys.modules.get("manta_tpu_torch.parallel.device_proc")
-    out = zero_counts()
-    if dp is not None:
-        out["device_proc"] = dict(dp.DEVICE_PROC)
-    if sc is not None:
-        out["joint"] = dict(sc.JOINT_STATS,
-                            fragments=list(sc.JOINT_STATS["fragments"]))
-    for mod in (cj, cs):
-        if mod is not None:
-            out["launches"].update(mod.KERNEL_LAUNCHES)
-            out["work"].update({k: dict(v)
-                                for k, v in mod.KERNEL_WORK.items()})
-    if dj is not None:
-        out["calls"]["jump_score"] = dj.DISPATCH_STATS["calls"]
-        out["wall"]["jump_score"] = dj.DISPATCH_STATS["wall"]
-    if ds is not None:
-        scan = ds.SCAN_STATS
-        out["calls"]["split_score"] = scan["exact"] + scan["fallback"]
-        out["wall"]["split_score"] = scan["wall"]
-    return out
+    """This process's host-side counts, from the ledger
+    (``parallel.counters``): each kernel's launches and work, the calls
+    and walls of the seams that reach it, the scorer's ``joint`` counts
+    (``JOINT_STATS``) and the device process's route's (``device_proc``:
+    ``DEVICE_PROC``); zeros for what it never ran."""
+    return counters.counts()
 
 
 def _device_events(prof, wall_ns: int, mono_ns: int):

@@ -21,21 +21,22 @@ Two formulations, as in the JAX package:
 
 Shapes are bucketed (read length and scan length padded to fixed
 tiers), the JAX package's tiers. The qual LUTs are made on the device
-once per qscore converter, at the first scan, so a context built before
-a fork creates no CUDA state in the parent.
+once for each pair of contents, at the first scan, so a context built
+before a fork creates no CUDA state in the parent.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 import torch
 
-from ..align.cuda_splitscore import KERNEL_WORK
+from ..align.cuda_splitscore import KERNEL_LAUNCHES, KERNEL_WORK
 from ..align.device_splitscore import split_score_factored
 from ..align.device_splitscore_mxu import junction_split_score
-from ..parallel import worker_trace
+from ..parallel import counters, device_proc, worker_trace
 
 _TIERS = (256, 512, 1024, 2048, 4096, 8192)
 
@@ -50,39 +51,30 @@ SCAN_STATS = {"exact": 0, "mxu": 0, "fallback": 0, "rows": 0, "wall": 0.0}
 SCAN_TIERS: dict[tuple[int, int], list[int]] = {}
 # copies the exact route asked for on a CUDA device: one each way a call
 EXACT_COPIES = {"h2d": 0, "d2h": 0}
-# the process that registered the report (a forked child registers its
-# own)
-_REPORT_PID = None
 
 
-def _register_scan_report():
-    import os
-    import sys
-    global _REPORT_PID
-    if _REPORT_PID == os.getpid():
-        return
-    _REPORT_PID = os.getpid()
+def _scan_line():
+    s = SCAN_STATS
+    work = KERNEL_WORK["split_score"]
+    calls = s["exact"] + s["mxu"] + s["fallback"]
+    if not calls:
+        return None
+    return (f"[manta-tpu-torch] split-scan pid={os.getpid()}: "
+            f"{calls} calls (exact {s['exact']}, mxu {s['mxu']}, "
+            f"fallback {s['fallback']}), {s['rows']} rows, "
+            f"{s['wall']:.2f}s total, "
+            f"{KERNEL_LAUNCHES['split_score']} kernel launches; "
+            f"work: {work['useful']} useful terms, "
+            f"{work['padded']} padded terms, {work['bytes']} bytes; "
+            f"tiers (Lp, Tp): {dict(sorted(SCAN_TIERS.items()))}")
 
-    from ..align.cuda_splitscore import KERNEL_LAUNCHES
-    from ..parallel.forkpool import at_process_exit
-    reported = []
 
-    def report():
-        s = SCAN_STATS
-        work = KERNEL_WORK["split_score"]
-        calls = s["exact"] + s["mxu"] + s["fallback"]
-        if calls and not reported:
-            reported.append(True)
-            print(f"[manta-tpu-torch] split-scan pid={os.getpid()}: "
-                  f"{calls} calls (exact {s['exact']}, mxu {s['mxu']}, "
-                  f"fallback {s['fallback']}), {s['rows']} rows, "
-                  f"{s['wall']:.2f}s total, "
-                  f"{KERNEL_LAUNCHES['split_score']} kernel launches; "
-                  f"work: {work['useful']} useful terms, "
-                  f"{work['padded']} padded terms, {work['bytes']} bytes; "
-                  f"tiers (Lp, Tp): {dict(sorted(SCAN_TIERS.items()))}",
-                  file=sys.stderr, flush=True)
-    at_process_exit(report)
+# the router's calls of the kernel: its exact scans and mxu fallbacks
+counters.register(
+    {"calls": lambda: {"split_score": SCAN_STATS["exact"]
+                       + SCAN_STATS["fallback"]},
+     "wall": lambda: {"split_score": SCAN_STATS["wall"]}},
+    line=_scan_line)
 
 
 def useful_terms(read_len, bp_beg, bp_end, target_len) -> int:
@@ -259,11 +251,10 @@ class ExactStaging:
 
 
 class DeviceScanContext:
-    """Holds the LUT tensors per qscore converter and dispatches bucketed
-    batches to the split scan on ``device``. Where the run has a device
-    process for ``device`` (``parallel.device_proc``), a call's staged
-    inputs go to it and it scans them with ``scan_staged``; this process
-    then makes no CUDA call."""
+    """The split router on ``device``: ``scan_multi`` buckets a call and
+    hands it to this process's route (``parallel.device_proc``), whose
+    own context of this class stages the inputs, keeps the LUT tensors
+    and scans (``scan_staged``)."""
 
     def __init__(self, mxu: bool = False, device="cuda"):
         self._mxu = bool(mxu)
@@ -272,35 +263,18 @@ class DeviceScanContext:
             raise ValueError(f"no split-scan path for device {self.device}")
         self._luts = {}
         self.staging = ExactStaging(self.device)
-        _register_scan_report()
-
-    def _put_luts(self, m, x):
-        # the scan clamps quals to [2, 70] and indexes a 71-entry LUT;
-        # reuse the first 71 entries of the 256-entry byte LUTs
-        return tuple(torch.from_numpy(np.ascontiguousarray(a[:71])).to(
-            self.device) for a in (m, x))
-
-    def _luts_for(self, qconv):
-        hit = self._luts.get(id(qconv))
-        if hit is None:
-            # the entry keeps qconv alive, so its id is not reused
-            hit = (*self._put_luts(*qconv.lut256()), qconv)
-            self._luts[id(qconv)] = hit
-        return hit[0], hit[1]
 
     def luts_of(self, m, x):
         """The LUT tensors of the 71-entry LUTs ``m``, ``x`` (float32
-        numpy), made once for each pair of contents: the device
-        process's, whose callers' converters live in other processes."""
+        numpy), made once for each pair of contents."""
         key = (m.tobytes(), x.tobytes())
         hit = self._luts.get(key)
         if hit is None:
-            hit = self._luts[key] = self._put_luts(m, x)
+            # the scan clamps quals to [2, 70] and indexes a 71-entry LUT
+            hit = self._luts[key] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a[:71])).to(
+                    self.device) for a in (m, x))
         return hit
-
-    def _put(self, *arrays):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in arrays)
 
     def scan_multi(self, flank_score_size, batch, read_idx, qconv,
                    targets, bp_ranges):
@@ -312,25 +286,16 @@ class DeviceScanContext:
 
     def _scan_multi(self, flank_score_size, batch, read_idx, qconv,
                     targets, bp_ranges):
-        from ..parallel import device_proc
-        remote = device_proc.client_for(self.device)
-        if remote is None:
-            worker_trace.device_call(self.device)
-        t0 = time.perf_counter()
         read_idx = np.asarray(read_idx, np.int64)
-        n, t = len(read_idx), len(targets)
         Lp = read_tier(batch, read_idx)
         Tp = _bucket(max(len(tg) for tg in targets) + 1)
-        if remote is not None:
-            m, x = qconv.lut256()
-            return remote.k3(
-                lambda flat: fill_staged(flat, batch, read_idx, targets,
-                                         bp_ranges, Lp, Tp),
-                n, t, Lp, Tp, flank_score_size, self._mxu, m[:71], x[:71])
-        host = self.staging.host(staged_bytes(n, t, Lp, Tp))
-        fill_staged(host.numpy(), batch, read_idx, targets, bp_ranges, Lp, Tp)
-        return self.scan_staged(host, n, t, Lp, Tp, flank_score_size,
-                                *self._luts_for(qconv), t0)
+        # the first 71 entries of the 256-entry byte LUTs
+        m, x = qconv.lut256()
+        return device_proc.route(self.device).k3(
+            lambda flat: fill_staged(flat, batch, read_idx, targets,
+                                     bp_ranges, Lp, Tp),
+            len(read_idx), len(targets), Lp, Tp, flank_score_size,
+            self._mxu, m[:71], x[:71])
 
     def scan_staged(self, host, n: int, t: int, Lp: int, Tp: int,
                     flank_score_size: int, lut_m, lut_x, t0: float):
@@ -340,8 +305,8 @@ class DeviceScanContext:
         ln-likelihoods and int32 positions, and the accounting
         (``SCAN_STATS`` from ``t0``, the call's start by
         ``perf_counter``; ``KERNEL_WORK``, ``SCAN_TIERS``). Run by the
-        process that owns the device: the caller's own, or the run's
-        device process."""
+        route of the process that owns the device: the caller's own, or
+        the run's device process."""
         reads, quals, read_lens, tgts, bp_beg, bp_end, target_len = \
             staged_views(host.numpy(), n, t, Lp, Tp)
         exact = not (self._mxu and self._mxu_eligible(reads, tgts))
@@ -395,8 +360,9 @@ class DeviceScanContext:
         grl = np.broadcast_to(read_lens, (t, n))
         s0 = np.zeros(t, np.int32)
         best, pos = junction_split_score(
-            *self._put(greads, gquals, tgts, s0, bp_beg, bp_end, grl,
-                       target_len),
+            *(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+              for a in (greads, gquals, tgts, s0, bp_beg, bp_end, grl,
+                        target_len)),
             flank_score_size, lut_m, lut_x, n_scan=Tp)
         # (t, n) -> (n, t)
         return (best.cpu().numpy().T.astype(np.float32).copy(),

@@ -23,6 +23,7 @@ from ..core.svmodel import (
     get_delete_size, is_sv_below_min_size,
 )
 from ..io.bam import FLAG_READ1
+from ..parallel import counters as _counters
 from .evidence import QscoreSnp, SVAlignmentInfo, SampleInfo, ScoreInfo
 from .fragbank import (
     AL_ALT, AL_REF, FragmentBank, accumulate_lhood,
@@ -58,11 +59,12 @@ _DUP_DEPTH_RATIO = (1.0, 1.5, 2.0)
 # SOMATIC_GT: REF, HET, HOM, SOM, NOISE
 SGT_REF, SGT_HET, SGT_HOM, SGT_SOM, SGT_NOISE, SGT_SIZE = 0, 1, 2, 3, 4, 5
 # what score_sv did in this process, for the run trace
-# (parallel/worker_trace.counts, key "joint"): junctions scored, their
+# (parallel/counters, key "joint"): junctions scored, their
 # samples summed (sample-junctions), the fragments in each sample's
 # banks, and the ns spent gathering evidence and in the score models
 JOINT_STATS = {"junctions": 0, "sample_junctions": 0, "fragments": [],
                "evidence_ns": 0, "genotype_ns": 0}
+_counters.register({"joint": JOINT_STATS})
 
 
 def _count_junction(tracks, evidence_ns: int, genotype_ns: int):

@@ -883,13 +883,13 @@ def bench_trace_aging(ctx):
 def bench_trace_span(ctx):
     """A phase-2 worker's trace (``parallel/worker_trace``) held open as
     long as a whole-genome worker's phase 2: this process arms itself as
-    a worker and makes its first device call (its context, then the
-    CUDA-only profiler, as in a worker), then calls the split router
+    a worker, makes one router call before the span, whose route makes
+    its context and starts the CUDA-only profiler as in a worker, and
+    takes what a first call costs once (the kernel's module loaded into
+    the context, the first copies), so that the span's first tenth holds
+    calls like the others; then it calls the split router
     ``--span-calls`` times spread evenly over ``--span-s`` seconds and
-    writes its trace as a worker does at exit. One router call before
-    the span takes what a first call costs once (the kernel's module
-    loaded into the context, the first copies), so that the span's first
-    tenth holds calls like the others. The record: the wrapper's
+    writes its trace as a worker does at exit. The record: the wrapper's
     launches against the trace's kernel records, both by tenth of the
     span, so that records lost the later the more (``trace_aging``)
     show in the last tenths, and the launch and record before it."""
@@ -907,11 +907,10 @@ def bench_trace_span(ctx):
         worker_trace.enter_phase2_worker(0)
         scan = DeviceScanContext(device=ctx.device)
         # the kernel built (a workflow's parent builds it before the
-        # fork), the context made and the profiler started (seconds)
-        # before the span: the router's first call finds them ready
+        # fork); the route's first call makes the context and starts the
+        # profiler (seconds), before the span
         from ..align import cuda_splitscore
         cuda_splitscore._lib()
-        worker_trace.device_call(ctx.device)
         scan.scan_multi(FLANK, batch, idx, qconv, targets, ranges)
         torch.cuda.synchronize(ctx.device)
         # a record is the call's before the span if it starts before

@@ -16,10 +16,10 @@ by the module's own line numbers, only in:
   ``cuda_present`` (new); ``resolve_device`` (new) picks the torch
   device of every device mode and raises for CUDA without a CUDA
   device;
-- :170 ``run_workflow`` takes ``device`` and ``jump_scorer`` (a contig
+- :145 ``run_workflow`` takes ``device`` and ``jump_scorer`` (a contig
   scorer of the caller's own, e.g. the mesh-sharded one); :203 resolves
-  them; :208 loads the native core through
-  ``manta_tpu_torch.native_core`` first;
+  them and builds the kernels (``build_kernels``); before :209 it loads
+  the native core through ``manta_tpu_torch.native_core``;
 - :223 the log prefix is ``[manta-tpu-torch]``;
 - :464-484 phase 2 hands ``device`` to the refiner and the scorer;
 - :1254 and :1274-1285 the CLI description and --device-scoring help;
@@ -30,7 +30,9 @@ by the module's own line numbers, only in:
   the start of phase 0 and joins it before the final sort
   (``parallel.device_proc``: ``engages``, ``start``, ``stop``): it makes
   the run's one CUDA context, and the phase-2 workers forward their
-  kernel calls to it;
+  kernel calls to it. ``device_proc`` owns the route: this module only
+  asks ``engages`` whether the run has a device process, and each seam
+  makes its call on ``device_proc.route``;
 - :1 and :75 docstring wording.
 """
 

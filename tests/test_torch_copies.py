@@ -44,7 +44,7 @@ _SPANS = ("the port's run trace: an armed run's forked phase-0 worker "
           "(parallel/worker_trace)")
 _JOINT = ("the port's run trace: the scorer counts its junctions, "
           "their samples and fragments and times evidence and the score "
-          "models (JOINT_STATS, read by parallel/worker_trace.counts)")
+          "models (JOINT_STATS, registered with parallel/counters)")
 _TPU_FIGURE = ("the port's comments state no time, rate or memory "
                "size measured on the JAX package's machines: the figure "
                "and its source document are dropped, the reasoning kept")
@@ -138,9 +138,10 @@ ALLOWED = {
           '{jump_score_backend!r}")'])],
     "scoring/scorer.py": [
         (_JOINT, [], ["import time"]),
+        (_JOINT, [], ["from ..parallel import counters as _counters"]),
         (_JOINT, [],
          ["# what score_sv did in this process, for the run trace",
-          '# (parallel/worker_trace.counts, key "joint"): junctions '
+          '# (parallel/counters, key "joint"): junctions '
           "scored, their",
           "# samples summed (sample-junctions), the fragments in each "
           "sample's",
@@ -149,6 +150,7 @@ ALLOWED = {
           'JOINT_STATS = {"junctions": 0, "sample_junctions": 0, '
           '"fragments": [],',
           '               "evidence_ns": 0, "genotype_ns": 0}',
+          '_counters.register({"joint": JOINT_STATS})',
           "", "",
           "def _count_junction(tracks, evidence_ns: int, genotype_ns: "
           "int):",

@@ -853,6 +853,8 @@ for route in ("device_proc", "in_process"):
         "roles": sorted(r["role"] for r in devs),
         "launches": {k: sum(r["counts"]["launches"][k] for r in devs)
                      for k in ("jump_score", "split_score")},
+        "calls": {k: sum(r["counts"]["calls"][k] for r in devs)
+                  for k in ("jump_score", "split_score")},
         "traced": {k: sum(1 for r in devs for e in r["events"] or ()
                           if f in e[0])
                    for k, f in (("jump_score", "jump_systolic_kernel"),
@@ -868,8 +870,9 @@ def test_device_process_against_the_in_process_route(cuda, tmp_path):
     the in-process route's, byte for byte; one record carries a
     ``cuda_startup_s`` (eight or fewer in process, one a worker that
     scored); the exit lines' launches equal the calls the seams made and
-    the records' launches, each launch counted once; the workflow
-    process never initialises CUDA."""
+    the records' launches, each launch counted once, and their calls the
+    records' calls, whichever route made them; the workflow process never
+    initialises CUDA."""
     seed = os.environ.get("DEVICE_PROC_CARD_SEED", "2718281829")
     res = subprocess.run(
         [sys.executable, "-c", _ROUTES,
@@ -895,5 +898,7 @@ def test_device_process_against_the_in_process_route(cuda, tmp_path):
             r["k1_kept"] == r["launches"]["jump_score"] > 0
         assert r["exit"]["k3_launches"] == r["exit"]["k3_calls"] == \
             r["k3_kept"] == r["launches"]["split_score"] > 0
+        assert r["calls"] == {"jump_score": r["exit"]["k1_calls"],
+                              "split_score": r["exit"]["k3_calls"]}
     assert proc["exit"] == inproc["exit"]
     assert proc["traced"] == proc["launches"]

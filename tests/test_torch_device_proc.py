@@ -25,6 +25,7 @@ The runs are on the seeded WGS-shaped workload of 1 chromosome x 2 Mb at
 20x of ``test_torch_worker_trace.py``, scanned in 1 Mb segments, in
 children that fork their workers."""
 
+import ast
 import glob
 import gzip
 import json
@@ -37,6 +38,7 @@ import pytest
 import torch
 
 from manta_tpu_torch.parallel import device_proc, worker_trace
+from svbench import logs
 
 from test_torch_kernel_work import GEN
 from test_torch_standalone import _PRELUDE
@@ -151,7 +153,8 @@ try:
 except RuntimeError as e:
     out["dead"] = str(e)
 out["stop"] = device_proc.stop()
-out["after_stop"] = device_proc.client_for(torch.device("cpu")) is None
+out["after_stop"] = isinstance(device_proc.route(torch.device("cpu")),
+                              device_proc.InProcess)
 print(json.dumps(out))
 """
 
@@ -230,9 +233,74 @@ def test_which_runs_engage_a_device_process(change, engaged):
 
 def test_no_run_no_client():
     assert device_proc._RUN is None
-    assert device_proc.client_for(CUDA) is None
-    assert device_proc.client_for(torch.device("cpu")) is None
+    for device in (CUDA, torch.device("cpu")):
+        route = device_proc.route(device)
+        assert isinstance(route, device_proc.InProcess)
+        assert route.device == device and device_proc.route(device) is route
     assert device_proc.stop() is None
+
+
+def _tree(path):
+    with open(os.path.join(REPO, "manta_tpu_torch", path)) as f:
+        return ast.parse(f.read())
+
+
+def _function(tree, *names):
+    """The function reached through ``names``, each one defined in the
+    last (a class or a function)."""
+    node = tree
+    for name in names:
+        node = next(n for n in ast.walk(node)
+                    if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                    and n.name == name)
+    return node
+
+
+def _called(node, name):
+    """The calls in ``node`` of a function or method named ``name``."""
+    return [n for n in ast.walk(node) if isinstance(n, ast.Call) and (
+        getattr(n.func, "id", None) == name
+        or getattr(n.func, "attr", None) == name)]
+
+
+def test_one_owner_of_the_card_and_one_ledger_of_the_counts():
+    """``device_proc`` alone decides where a kernel call runs: each seam
+    makes one route call and asks the run trace nothing; the run trace
+    reads its counts from the ledger, never from the counting modules;
+    and only the ledger and the run trace hook a process's exit."""
+    trace = _tree("parallel/worker_trace.py")
+    for node in ast.walk(trace):
+        if isinstance(node, ast.ImportFrom):
+            module = "." * node.level + (node.module or "")
+            names = {a.name for a in node.names}
+            assert not module.lstrip(".").startswith(("align", "scoring")), \
+                module
+            assert "device_proc" not in module and \
+                "device_proc" not in names, module
+        assert not (isinstance(node, ast.Import) and any(
+            ".align" in a.name or ".scoring" in a.name
+            or "device_proc" in a.name for a in node.names))
+        assert not (isinstance(node, ast.Attribute)
+                    and node.attr == "modules"
+                    and getattr(node.value, "id", None) == "sys")
+    seams = {"k1": _function(_tree("align/device_jumpscore.py"),
+                             "make_bucketed_scorer", "scorer"),
+             "k3": _function(_tree("scoring/device_scan.py"),
+                             "DeviceScanContext", "_scan_multi")}
+    for kind, seam in seams.items():
+        assert len(_called(seam, "route")) == 1, kind
+        assert len(_called(seam, kind)) == 1, kind
+        assert not any(getattr(n, "id", getattr(n, "attr", None))
+                       == "device_call" for n in ast.walk(seam)), kind
+    hooks = set()
+    for root, _dirs, files in os.walk(os.path.join(REPO, "manta_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.relpath(os.path.join(root, name), os.path.join(
+                    REPO, "manta_tpu_torch"))
+                if _called(_tree(path), "at_process_exit"):
+                    hooks.add(path)
+    assert hooks == {"parallel/counters.py", "parallel/worker_trace.py"}
 
 
 # ------------------------------------------------------------ whole runs
@@ -349,6 +417,8 @@ def test_jobs_2_vcfs_are_the_in_process_ones(runs):
 
 
 def test_jobs_2_the_device_process_prints_the_workers_calls(runs):
+    """The exit lines say the same in process and through the device
+    process, read by the benchmark's own parser too."""
     inproc, proc, _recs = runs
     assert inproc[0]["started"] == [] and inproc[0]["error"] is None
     assert proc[0]["started"] == [proc[0]["pid"]] and proc[0]["error"] is None
@@ -365,6 +435,9 @@ def test_jobs_2_the_device_process_prints_the_workers_calls(runs):
         sum(int(j) for _p, _c, j in want_k1)
     pids = {int(p) for p, _c in got_scan} | {int(p) for p, _c, _j in got_k1}
     assert len(pids) == 1 and proc[0]["pid"] not in pids
+    sums = logs.exit_lines(proc[1])
+    assert sums == logs.exit_lines(inproc[1])
+    assert sums["k3_calls"] > 0               # no launch: the CPU's forms
 
 
 def test_jobs_2_records_say_who_did_what(runs):

@@ -183,19 +183,22 @@ def test_unarmed_span_is_one_object_with_no_clock_and_no_allocation(
 def test_spans_only_arming_makes_no_context_of_its_own(monkeypatch,
                                                        tmp_path):
     """Armed with ``device=False``, a phase-2 worker's first call on a
-    CUDA device makes no context and starts no profiler (the seam's
-    own call makes the context, as unarmed): no ``cuda.context`` or
-    ``trace.start`` span, no start-up time. On this CPU-only build a
-    context made here would raise; the record's writer is not
-    registered, as this process does not exit here."""
+    CUDA device through its in-process route makes no context and starts
+    no profiler (the seam's own call makes the context, as unarmed): no
+    ``cuda.context`` or ``trace.start`` span, no start-up time. On this
+    CPU-only build a context made here would raise; the record's writer
+    is not registered, as this process does not exit here."""
+    import torch
+    from manta_tpu_torch.parallel import device_proc
     _fresh(monkeypatch, tmp_path)
     worker_trace.arm(str(tmp_path), device=False)
-    from manta_tpu_torch.parallel import forkpool
-    monkeypatch.setattr(forkpool, "at_process_exit", lambda fn: None)
+    monkeypatch.setattr(worker_trace, "at_process_exit", lambda fn: None)
     worker_trace.enter_phase2_worker(3)
+    route = device_proc.route(torch.device("cuda"))
+    assert isinstance(route, device_proc.InProcess)
     with worker_trace.span("k3.route", pairs=1):
-        worker_trace.device_call("cuda")
-    worker_trace.device_call("cuda")
+        route._enter()
+    route._enter()
     w, rec = worker_trace._WORKER, worker_trace._REC
     assert w["touched"] and w["cuda_startup_s"] is None
     assert w["profiler"] is None
